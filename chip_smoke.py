@@ -1,0 +1,576 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, in order (each failure is reported and the script exits 1):
+
+  1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
+  2. build: every CUDA source of the port, compiled in parallel;
+  3. K1 paged decode against its plain version at qwen2-0.5b's decode
+     shapes (B=8, KV=2, G=7, hd=64, bs=16), ragged lengths with 0, 1, a
+     block boundary and a full table, NULL-block entries, and one case
+     with a window and a softcap, in fp32 and bf16;
+  4. K2 mpgemm against its plain version for OS, OS with k_fold 2 and 4,
+     WS and IS at the path's GEMM shapes and one ragged shape, fp32/bf16;
+  5. the main path: qwen2-0.5b at full width (random weights from
+     ``--seed``) served by the paged engine, 8 requests of 64-512 prompt
+     tokens and 32 new tokens, under gemm_backend "xla" and "scheduled"
+     (each run's launch counts zeroed just before it and read just after);
+  6. scaled-down fp32 qwen2 under both backends: greedy tokens identical
+     (weights x5, so that the greedy tokens vary);
+  7. each kernel timed at the path's shapes beside its bound, its plain
+     version and one library call that computes the same function;
+  8. one full-width decode step profiled (torch.profiler): wall time,
+     device time, kernel launches and the heaviest kernels.
+
+The line before the last lists the kernels as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Details go to
+``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
+port beside this script, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "chip_smoke.json"
+
+#: H100 SXM data-sheet peaks (dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+K1_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
+K1_REPLACES = "src/repro/kernels/paged_attention.py:123"
+K2_SOURCE = "src/repro_torch/kernels/csrc/mpgemm.cu"
+K2_REPLACES = "src/repro/kernels/mpgemm.py:183"
+
+
+def smi_line() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+    return out.splitlines()[0] if out else "nvidia-smi printed nothing"
+
+
+class Smoke:
+    def __init__(self, args):
+        self.args = args
+        self.failures: list[str] = []
+        self.report: dict = {"phases": {}}
+        self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0}
+
+    def phase(self, name: str, fn) -> None:
+        print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            fn()
+            status = "ok"
+        except Exception:  # noqa: BLE001 - every phase reports, then exit 1
+            traceback.print_exc()
+            self.failures.append(name)
+            status = "FAILED"
+        dt = time.perf_counter() - t0
+        self.report["phases"][name] = {"status": status, "seconds": dt}
+        print(f"== {name}: {status} ({dt:.1f} s)", flush=True)
+
+
+def time_ms(fn, iters: int, flush=None) -> float:
+    """Median device time of one call: CUDA events around each call, the
+    L2-flush write (when given) between calls outside the events, and a
+    device-side sleep before the start event so that the device is still
+    busy while the host enqueues the call -- host launch overhead then
+    falls outside the measured interval."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for s, e in ev:
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    ts = sorted(s.elapsed_time(e) for s, e in ev)
+    return ts[len(ts) // 2]
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: the port (src/repro_torch) is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+
+    from repro_torch import configs as CONFIGS
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.core.scheduler import ScheduleCache
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mpgemm as MP
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import network as N
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving.engine import ContinuousEngine, Request
+
+    dev = torch.device("cuda")
+    sm = Smoke(args)
+    rep = sm.report
+    card = smi_line()
+    kind = torch.cuda.get_device_name(0)
+
+    # -- 1. device ---------------------------------------------------------
+    def p_device():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rep["device"] = {"name": kind, "count": torch.cuda.device_count(),
+                         "nvidia_smi": card, "torch": torch.__version__,
+                         "cuda": torch.version.cuda}
+        print(card)
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+              f"TF32 off (matmul and cuDNN): fp32 products are true fp32")
+
+    # -- 2. build ----------------------------------------------------------
+    def p_build():
+        t0 = time.perf_counter()
+        logs = _build.build(ptxas_info=True)
+        rep["build_s"] = time.perf_counter() - t0
+        for name, log in logs.items():
+            used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
+            print(f"{name}: {len(used)} kernels; " + (used[0] if used else ""))
+        print(f"built {list(logs)} in {rep['build_s']:.1f} s (nvcc, parallel)")
+
+    # -- 3. K1 against its plain version -----------------------------------
+    def decode_inputs(dtype, lens, B=8, KV=2, G=7, hd=64, bs=16, nbs=64,
+                      seed=1):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        nb = 1 + B * nbs
+        q = torch.randn(B, KV, G, hd, generator=gen, device=dev)
+        k = torch.randn(nb, bs, KV, hd, generator=gen, device=dev)
+        v = torch.randn(nb, bs, KV, hd, generator=gen, device=dev)
+        table = (1 + torch.randperm(nb - 1, generator=gen, device=dev)
+                 [:B * nbs]).reshape(B, nbs).int()
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for b in range(B):
+            table[b, -(-lens[b] // bs):] = 0         # NULL past the length
+        return [t.to(dtype) for t in (q, k, v)] + [table, lens_t]
+
+    def p_k1():
+        lens = [0, 1, 16, 17, 1024, 300, 511, 64]    # 64 x 16 = full table
+        out = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args_ = decode_inputs(dtype, lens)
+            for window, cap in ((None, None), (200, 30.0)):
+                got = PA.paged_decode(*args_, scale=0.125, window=window,
+                                      logit_cap=cap)
+                want = PA.gather_fallback(*args_, scale=0.125,
+                                          window=window, logit_cap=cap)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                key = f"{str(dtype)[6:]} window={window} softcap={cap}"
+                out[key] = err
+                sm.kerr["paged_decode"] = max(sm.kerr["paged_decode"], err)
+                ok = err <= tol and not got[0].any() \
+                    and bool(torch.isfinite(got).all())
+                print(f"K1 {key}: max|err| {err:.3e} (tol {tol}) "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"K1 {key}: err {err} > {tol} or "
+                                         f"non-zero length-0 row")
+        rep["k1_check"] = out
+
+    # -- 4. K2 against its plain version ------------------------------------
+    path_nk = [(896, 896), (128, 896), (4864, 896), (896, 4864),
+               (151936, 896)]
+
+    def gemm_inputs(M, N, K, dtype, seed):
+        # a ~ N(0, 1/K), b ~ N(0, 1): products of order 1, as after RMSNorm
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        a = (torch.randn(M, K, generator=gen, device=dev) / K ** 0.5
+             ).to(dtype)
+        if N == 151936:     # the LM head: the (V, D) table, transposed view
+            b = torch.randn(N, K, generator=gen, device=dev).to(dtype).t()
+        else:
+            b = torch.randn(K, N, generator=gen, device=dev).to(dtype)
+        return a, b
+
+    def p_k2():
+        variants = [("OS", Dataflow.OS, 1), ("OS-fold2", Dataflow.OS, 2),
+                    ("OS-fold4", Dataflow.OS, 4), ("WS", Dataflow.WS, 1),
+                    ("IS", Dataflow.IS, 1)]
+        shapes = [(M, N, K) for M in (8, 256) for N, K in path_nk]
+        shapes.append((37, 1000, 900))              # not a block multiple
+        rows, worst = [], {}
+        for (M, N, K), dtype in [(s, d) for s in shapes
+                                 for d in (torch.float32, torch.bfloat16)]:
+            a, b = gemm_inputs(M, N, K, dtype, M + N + K)
+            out_dtype = torch.float32 if N == 151936 else dtype
+            for name, df, fold in variants:
+                bm, bn, bk = OPS.plan_blocks(M, N, K, a.element_size(), df,
+                                             fold)
+                ef = MP.effective_fold(K, bk, fold)
+                got = MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                                k_fold=ef, out_dtype=out_dtype)
+                want = MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
+                                       out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                scale = 1.0 + want.float().abs()
+                tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+                rel = (diff / scale).max().item()
+                err = diff.max().item()
+                sm.kerr["mpgemm"] = max(sm.kerr["mpgemm"], err)
+                key = f"{name} {str(dtype)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), rel)
+                rows.append({"M": M, "N": N, "K": K, "variant": name,
+                             "dtype": str(dtype)[6:], "blocks": [bm, bn, bk],
+                             "fold": ef, "max_abs_err": err,
+                             "max_rel_err": rel, "ok": rel <= tol})
+        rep["k2_check"] = rows
+        for key, rel in worst.items():
+            print(f"K2 {key}: worst |err|/(1+|ref|) {rel:.3e} over "
+                  f"{len(shapes)} shapes")
+        bad = [r for r in rows if not r["ok"]]
+        print(f"K2: {len(rows) - len(bad)}/{len(rows)} cases within "
+              f"tolerance (fp32 out 1e-4, bf16 out 1e-2, relative to "
+              f"1 + |ref|)")
+        if bad:
+            raise AssertionError(f"K2 mismatches: {bad[:3]}")
+
+    # -- 5. the main path ---------------------------------------------------
+    def requests(rng, n, lo, hi, new, vocab, prefix=0):
+        pre = rng.integers(3, vocab, prefix).astype(np.int32)
+        return [Request(i, np.concatenate(
+            [pre, rng.integers(3, vocab, int(rng.integers(lo, hi)))
+             .astype(np.int32)]), new, eos=-1) for i in range(n)]
+
+    def serve(cfg, params, reqs, slots, max_len, audit):
+        """One engine run; the schedule stats and the launch counts cover
+        only this run (zeroed just before it, read just after)."""
+        eng = ContinuousEngine(cfg, params, slots=slots, max_len=max_len,
+                               audit=audit, device=dev)
+        eng.schedule.reset()
+        torch.cuda.synchronize()
+        PA.launches.reset()
+        MP.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"paged_decode": PA.launches.count,
+                  "mpgemm": MP.launches.count,
+                  "mpgemm_by_dataflow": dict(MP.launches_by_dataflow)}
+        return eng, sorted(res, key=lambda r: r.rid), wall, counts
+
+    def summary(eng, res, wall):
+        toks = sum(len(r.tokens) for r in res)
+        tpot = [r.decode_s / (len(r.tokens) - 1) for r in res
+                if len(r.tokens) > 1]
+        st = eng.schedule.stats()
+        return {"requests": len(res),
+                "ok": sum(r.status == "ok" for r in res),
+                "new_tokens": toks, "wall_s": wall,
+                "tok_per_s": toks / wall,
+                "ttft_p50_ms": float(np.percentile(
+                    [r.ttft_s for r in res], 50)) * 1e3,
+                "ttft_max_ms": max(r.ttft_s for r in res) * 1e3,
+                "tpot_p50_ms": float(np.percentile(tpot, 50)) * 1e3,
+                "decode_steps": eng.steps, "chunk_steps": eng.chunk_steps,
+                "schedule_hits": st["hits"], "schedule_misses": st["misses"],
+                "pool": eng.pool.stats()}
+
+    full = CONFIGS.get("qwen2_0_5b")
+    main_launches: dict = {}
+    full_params: dict = {}
+
+    def params_full():
+        if not full_params:
+            full_params["p"] = N.init(full, args.seed, dev)
+        return full_params["p"]
+
+    def p_main():
+        params = params_full()
+        rng = np.random.default_rng(args.seed)
+        reqs = requests(rng, 8, 64, 513, 32, full.vocab)
+        cfgs = {b: dataclasses.replace(full, gemm_backend=b)
+                for b in ("xla", "scheduled")}
+        for b, cfg in cfgs.items():         # warm-up (allocator, cuBLAS)
+            warm = requests(np.random.default_rng(99), 2, 40, 41, 4,
+                            full.vocab)
+            ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                             device=dev).run(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs, tokens = {}, {}
+        for b, cfg in cfgs.items():
+            eng, res, wall, counts = serve(cfg, params, reqs, 8, 1024,
+                                           audit=False)
+            runs[b] = summary(eng, res, wall)
+            runs[b]["launches"] = counts
+            main_launches[b] = counts
+            tokens[b] = [r.tokens.tolist() for r in res]
+        rep["main"] = runs
+        rep["main_launches"] = main_launches
+        rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        same = sum(x == y for tx, ts in zip(tokens["xla"],
+                                            tokens["scheduled"])
+                   for x, y in zip(tx, ts))
+        total = sum(len(t) for t in tokens["xla"])
+        rep["main_agreement"] = same / total
+        for b, r in runs.items():
+            print(f"[{card}] qwen2-0.5b full width, {b}: {r['ok']}/"
+                  f"{r['requests']} ok, {r['new_tokens']} tokens in "
+                  f"{r['wall_s']:.2f} s = {r['tok_per_s']:.1f} tok/s, TTFT "
+                  f"p50 {r['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                  f"{r['tpot_p50_ms']:.2f} ms, schedule cache "
+                  f"{r['schedule_hits']} hits / {r['schedule_misses']} "
+                  f"misses, launches {r['launches']}")
+        print(f"greedy agreement xla vs scheduled (bf16): {same}/{total}")
+        # logits of a short prefill under both backends: finite, (B, V)
+        logits = {}
+        table = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
+        toks = torch.from_numpy(rng.integers(3, full.vocab, (2, 32))
+                                .astype(np.int32)).to(dev)
+        lens = torch.tensor([32, 20], dtype=torch.int32, device=dev)
+        for b, cfg in cfgs.items():
+            caches = N.expand_cache_pos(
+                N.init_paged_caches(cfg, 2, 9, 16, device=dev), 2)
+            logits[b], _ = N.prefill_paged_chunk(
+                params, cfg, toks, caches, torch.arange(
+                    2, dtype=torch.int32, device=dev), table, lens, lens - 1)
+        lx, ls = logits["xla"], logits["scheduled"]
+        rel = ((lx - ls).abs().max() / lx.abs().max()).item()
+        rep["main_logits_rel_diff"] = rel
+        print(f"prefill logits {tuple(lx.shape)} finite: "
+              f"{bool(torch.isfinite(lx).all() and torch.isfinite(ls).all())}"
+              f", max|xla - scheduled| / max|xla| = {rel:.2e}")
+        bad = [b for b, r in runs.items()
+               if r["ok"] != 8 or r["new_tokens"] != 8 * 32
+               or r["schedule_misses"] != 0 or r["schedule_hits"] == 0]
+        if bad:
+            raise AssertionError(f"main path runs failed checks: {bad}")
+        if any(c["paged_decode"] == 0 for c in main_launches.values()) \
+                or main_launches["scheduled"]["mpgemm"] == 0:
+            raise AssertionError(f"a kernel never launched: {main_launches}")
+        if main_launches["xla"]["mpgemm"] != 0:
+            raise AssertionError("the xla backend launched mpgemm")
+        if tuple(lx.shape) != (2, full.vocab) or not (
+                torch.isfinite(lx).all() and torch.isfinite(ls).all()):
+            raise AssertionError("full-width logits not finite / bad shape")
+
+    # -- 6. scaled-down fp32: backends token-identical -----------------------
+    def p_small():
+        # at init scale a random model repeats one token per request; x5
+        # weights make the greedy tokens vary, so identity means something
+        base = CONFIGS.get("qwen2_0_5b").scaled_down()
+        params = tree_map(lambda _p, a: a * 5.0, N.init(base, args.seed, dev))
+        rng = np.random.default_rng(args.seed + 1)
+        reqs = requests(rng, 8, 4, 64, 16, base.vocab, prefix=32)
+        toks = {}
+        for b in ("xla", "scheduled"):
+            cfg = dataclasses.replace(base, gemm_backend=b)
+            _eng, res, _, _ = serve(cfg, params, reqs, 4, 160, audit=True)
+            if not all(r.status == "ok" for r in res):
+                raise AssertionError(f"scaled-down {b}: a request failed")
+            toks[b] = [r.tokens.tolist() for r in res]
+        same = toks["xla"] == toks["scheduled"]
+        distinct = len({t for seq in toks["xla"] for t in seq})
+        rep["small"] = {"weights_scale": 5.0, "identical": same,
+                        "distinct_tokens": distinct,
+                        "tokens": sum(len(t) for t in toks["xla"])}
+        print(f"scaled-down fp32, weights x5: greedy tokens identical "
+              f"across backends: {same} ({distinct} distinct tokens over "
+              f"{len(reqs)} requests)")
+        if not same:
+            raise AssertionError("scaled-down fp32 tokens differ between "
+                                 "the xla and scheduled backends")
+        if distinct < 4 * len(reqs):
+            raise AssertionError(f"degenerate greedy output: {distinct} "
+                                 f"distinct tokens over {len(reqs)} requests")
+
+    # -- 7. timing -----------------------------------------------------------
+    timing: dict = {}
+
+    def p_timing():
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        # K1: one layer's decode at B=8, 512-token contexts, bf16
+        B, KV, G, hd, bs, T = 8, 2, 7, 64, 16, 512
+        q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B)
+        args_ = (q, k, v, table, lens)
+        kern = time_ms(lambda: PA.paged_decode(*args_, scale=0.125), 200,
+                       flush)
+        plain = time_ms(lambda: PA.gather_fallback(*args_, scale=0.125), 50,
+                        flush)
+        kg = PA.gather_pool_blocks(k, table)[:, :T].permute(0, 2, 1, 3)
+        vg = PA.gather_pool_blocks(v, table)[:, :T].permute(0, 2, 1, 3)
+        kg = kg.repeat_interleave(G, dim=1).contiguous()
+        vg = vg.repeat_interleave(G, dim=1).contiguous()
+        qh = q.reshape(B, KV * G, 1, hd)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = time_ms(lambda: sdpa(qh, kg, vg, scale=0.125), 200, flush)
+        nbytes = 2 * (q.numel() + 2 * B * T * KV * hd + q.numel()) \
+            + 4 * (table.numel() + B)
+        b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * T * hd, "bfloat16")
+        timing["paged_decode"] = {
+            "shape": f"B={B} KV={KV} G={G} hd={hd} bs={bs} len={T} bf16",
+            "ms": kern, "plain_ms": plain, "library_ms": lib,
+            "library": "F.scaled_dot_product_attention over the gathered, "
+                       "head-expanded KV",
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"K1 {timing['paged_decode']['shape']}: kernel {kern*1e3:.1f}"
+              f" us, plain {plain*1e3:.1f} us, SDPA {lib*1e3:.1f} us, bound "
+              f"{b_ms*1e3:.2f} us ({b_by})")
+
+        # K2: every GEMM shape of the path under its scheduled dataflow
+        sched = ScheduleCache()
+        shapes = []
+        for M in (8, 256):
+            shapes += [(M, N_, K_) for N_, K_ in path_nk[:4]]
+        shapes.append((8, 151936, 896))      # head rows = slots
+        rows = []
+        for M, N_, K_ in shapes:
+            a, b = gemm_inputs(M, N_, K_, torch.bfloat16, 7)
+            out_dtype = torch.float32 if N_ == 151936 else torch.bfloat16
+            choice = sched.resolve(M, N_, K_, "BP16")
+            df = choice.dataflow
+            bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, choice.k_fold)
+            ef = MP.effective_fold(K_, bk, choice.k_fold)
+            iters = 20 if N_ == 151936 else 100
+            kern = time_ms(lambda: MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn,
+                                             bk=bk, k_fold=ef,
+                                             out_dtype=out_dtype),
+                           iters, flush)
+            plain = time_ms(lambda: MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
+                                                    out_dtype=out_dtype),
+                            max(5, iters // 4), flush)
+            lib = time_ms(lambda: torch.matmul(a, b), iters, flush)
+            nbytes = 2 * (M * K_ + K_ * N_) \
+                + M * N_ * (4 if out_dtype == torch.float32 else 2)
+            b_ms, b_by = bound_ms(nbytes, 2 * M * N_ * K_, "bfloat16")
+            rows.append({"M": M, "N": N_, "K": K_, "dataflow": df.value,
+                         "k_fold": ef, "blocks": [bm, bn, bk],
+                         "ms": kern, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"K2 bf16 ({M}, {N_}, {K_}) {df.value} f={ef} tile "
+                  f"{bm}x{bn}x{bk}: kernel {kern*1e3:.1f} us, plain "
+                  f"{plain*1e3:.1f} us, torch.matmul {lib*1e3:.1f} us, "
+                  f"bound {b_ms*1e3:.1f} us ({b_by})")
+        timing["mpgemm_shapes"] = rows
+        timing["mpgemm"] = dict(rows[-1], shape="head (8, 151936, 896) bf16 "
+                                "-> fp32", library="torch.matmul (bf16)")
+
+    # -- 8. where one decode step's time goes ------------------------------
+    def p_profile():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        params = params_full()
+        out = {}
+        for b in ("xla", "scheduled"):
+            cfg = dataclasses.replace(full, gemm_backend=b)
+            eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                                   device=dev)
+            for r in requests(np.random.default_rng(7), 8, 30, 31, 64,
+                              full.vocab):
+                eng.submit(r)
+            for _ in range(3):        # one chunk step prefills all, then
+                eng.step()            # every step is a decode step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 5 * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            # kernel events only: aten ops carry their kernels' time too
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+            kernels = sum(e.count for e in ev)
+            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+            out[b] = {"step_ms": wall, "device_ms": dev_ms,
+                      "device_busy_share": dev_ms / wall,
+                      "device_kernels": kernels,
+                      "top": [(e.key[:60], e.self_device_time_total / 1e3,
+                               e.count) for e in top]}
+            print(f"[{card}] full-width decode step, {b}: {wall:.2f} ms "
+                  f"wall, {dev_ms:.2f} ms on the device "
+                  f"({100 * dev_ms / wall:.0f}% busy), {kernels} kernel "
+                  f"launches; top: " + "; ".join(
+                      f"{k} {t:.2f} ms x{c}" for k, t, c in out[b]["top"]))
+        rep["step_profile"] = out
+
+    for name, fn in (("device", p_device), ("build", p_build),
+                     ("k1_vs_plain", p_k1), ("k2_vs_plain", p_k2),
+                     ("main_path", p_main), ("scaled_down_fp32", p_small),
+                     ("timing", p_timing), ("step_profile", p_profile)):
+        if name != "device" and "build" in sm.failures:
+            break
+        sm.phase(name, fn)
+
+    # launches: the scheduled run, the one that runs every kernel of the
+    # path (each backend's counts are in the report)
+    sched_counts = main_launches.get("scheduled", {})
+    kernels = []
+    for name, src, repl in (("paged_decode", K1_SOURCE, K1_REPLACES),
+                            ("mpgemm", K2_SOURCE, K2_REPLACES)):
+        t = timing.get(name, {})
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": repl,
+                        "launches": sched_counts.get(name, 0),
+                        "max_abs_err": sm.kerr[name],
+                        "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+                        "bound_ms": t.get("bound_ms"),
+                        "bound_by": t.get("bound_by"),
+                        "library_ms": t.get("library_ms")})
+    rep["timing"] = timing
+    rep["kernels"] = kernels
+    rep["failures"] = sm.failures
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    OUT.write_text(json.dumps(rep, indent=1, default=str) + "\n")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    if sm.failures:
+        print(f"chip_smoke: FAILED phases {sm.failures}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

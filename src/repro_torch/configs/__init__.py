@@ -1,0 +1,26 @@
+"""Architecture registry of the port: ``get(name)`` -> ModelConfig.
+
+Only the architectures the port serves are registered; the reference's
+other families are listed in ROADMAP.md as still to be ported.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_IDS: list[str] = ["qwen2_0_5b"]
+
+#: accepted aliases (the dashed ids)
+ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b"}
+
+__all__ = ["ALIASES", "ARCH_IDS", "get"]
+
+
+def get(name: str) -> ModelConfig:
+    key = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{key}")
+    return mod.CONFIG.validate()

@@ -1,0 +1,195 @@
+"""Schedule exploration and the serving ScheduleCache (paper §5; copy of
+``repro.core.scheduler``, the part serving uses).
+
+Every candidate (lane arrangement x dataflow x fold x direction) is costed
+by ``core.dataflow`` and the paper's priority rule picks the least sum of
+squares of the min-normalized (cycles, traffic).  ``ScheduleCache``
+memoizes the winner per (M, N, K, precision) for the serving hot path.
+The realizable-fold filter uses ``tiling.FOLD_GRAIN`` (128, the same K
+granularity as the reference's MXU_DIM), so the port's cache makes the
+same (dataflow, k_fold) choice as the reference's for every shape.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from collections.abc import Sequence
+
+from repro_torch.core.dataflow import (ArrayShape, CostReport, Dataflow,
+                                       Direction, candidate_costs)
+from repro_torch.core.pgemm import PGEMM
+from repro_torch.core.precision import BY_NAME, Precision
+from repro_torch.core.tiling import FOLD_GRAIN
+from repro_torch.obs.metrics import NULL_METRIC
+
+MPRA_DIM = 8  # each lane carries one 8x8 MPRA (paper §4.1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GTAConfig:
+    """Physical configuration of a GTA instance (lanes of 8x8 MPRAs; one
+    systolic mask group spans at most ``max_group_lanes`` lanes)."""
+
+    lanes: int = 4
+    mpra_dim: int = MPRA_DIM
+    max_group_lanes: int = 64
+
+    @property
+    def group_lanes(self) -> int:
+        return min(self.lanes, self.max_group_lanes)
+
+    def arrangements(self) -> list[ArrayShape]:
+        """All (rows x cols) arrays reachable by re-arranging the lanes of
+        one mask group."""
+        n = self.group_lanes
+        return [ArrayShape(r * self.mpra_dim, (n // r) * self.mpra_dim)
+                for r in range(1, n + 1) if n % r == 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleChoice:
+    best: CostReport
+    space: tuple[CostReport, ...]
+
+
+def sum_of_squares_priority(reports: Sequence[CostReport]) -> CostReport:
+    """Paper §5: normalize each metric to its minimum over the candidates
+    and pick the least sum of squares."""
+    if not reports:
+        raise ValueError("no candidate schedules")
+    min_c = max(min(r.cycles for r in reports), 1e-9)
+    min_t = max(min(r.traffic_bytes for r in reports), 1e-9)
+    return min(reports, key=lambda r: (r.cycles / min_c) ** 2
+               + (r.traffic_bytes / min_t) ** 2)
+
+
+def explore(op: PGEMM, config: GTAConfig,
+            k_folds: list[int] | None = None) -> ScheduleChoice:
+    """Enumerate (arrangement x dataflow x fold x direction) and select."""
+    space: list[CostReport] = []
+    for array in config.arrangements():
+        space.extend(candidate_costs(op, array, k_folds=k_folds))
+    return ScheduleChoice(best=sum_of_squares_priority(space),
+                          space=tuple(space))
+
+
+GemmKey = tuple[int, int, int, str]  # (M, N, K, precision name)
+
+
+@dataclasses.dataclass(frozen=True)
+class CachedChoice:
+    """The memoized winner of one ``explore`` run."""
+
+    dataflow: Dataflow
+    array: ArrayShape
+    k_fold: int
+    direction: Direction
+    cycles: float
+    traffic_bytes: float
+
+
+class ScheduleCache:
+    """Shape -> schedule memo consulted on the serving hot path.
+
+    ``resolve`` explores once per distinct (M, N, K, precision) and is a
+    dict hit afterwards; ``kernels.ops.matmul`` applies the choice to the
+    mpgemm launch and records what executed with :meth:`note_applied`.
+    Thread-safe."""
+
+    def __init__(self, config: GTAConfig | None = None,
+                 k_folds: list[int] | None = None):
+        self.config = config or GTAConfig()
+        self.k_folds = k_folds
+        self._entries: dict[GemmKey, CachedChoice] = {}
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        #: bounded tail of (key, CachedChoice) kernel applications
+        self.applied: collections.deque[tuple[GemmKey, CachedChoice]] = (
+            collections.deque(maxlen=1024))
+        self.applied_total = 0
+        self._m_hits = self._m_misses = self._m_applied = NULL_METRIC
+
+    def bind_metrics(self, registry) -> None:
+        """Mirror hit/miss/applied events into ``schedule.*`` counters."""
+        self._m_hits = registry.counter(
+            "schedule.hits", "ScheduleCache memo hits since bind")
+        self._m_misses = registry.counter(
+            "schedule.misses", "ScheduleCache explorations since bind")
+        self._m_applied = registry.counter(
+            "schedule.applied", "kernel applications since bind")
+
+    @staticmethod
+    def key_of(M: int, N: int, K: int,
+               precision: Precision | str) -> GemmKey:
+        name = precision if isinstance(precision, str) else precision.name
+        return (int(M), int(N), int(K), name)
+
+    def realizable_k_folds(self, K: int) -> list[int]:
+        """Fold candidates the kernel can execute for this contraction:
+        the divisors of ``ceil(K / FOLD_GRAIN)`` among the candidates."""
+        gk = max(1, -(-int(K) // FOLD_GRAIN))
+        cands = self.k_folds or [1, 2, 4, 8]
+        folds = [f for f in cands if f <= gk and gk % f == 0]
+        return folds or [1]
+
+    def resolve(self, M: int, N: int, K: int,
+                precision: Precision | str) -> CachedChoice:
+        key = self.key_of(M, N, K, precision)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self.hits += 1
+                self._m_hits.inc()
+                return hit
+        op = PGEMM("serve", M=key[0], N=key[1], K=key[2],
+                   precision=BY_NAME[key[3]])
+        choice = explore(op, self.config, self.realizable_k_folds(K))
+        sched = choice.best.schedule
+        entry = CachedChoice(dataflow=sched.dataflow, array=sched.array,
+                             k_fold=sched.k_fold, direction=sched.direction,
+                             cycles=choice.best.cycles,
+                             traffic_bytes=choice.best.traffic_bytes)
+        with self._lock:
+            self.misses += 1
+            self._m_misses.inc()
+            self._entries.setdefault(key, entry)
+            return self._entries[key]
+
+    def insert(self, M: int, N: int, K: int, precision: Precision | str,
+               choice: CachedChoice) -> None:
+        """Force an entry (tests / offline-tuned overrides)."""
+        with self._lock:
+            self._entries[self.key_of(M, N, K, precision)] = choice
+
+    def note_applied(self, M: int, N: int, K: int,
+                     precision: Precision | str,
+                     choice: CachedChoice, *,
+                     effective_k_fold: int | None = None,
+                     effective_dataflow: Dataflow | None = None) -> None:
+        """Record one kernel application of ``choice`` as it EXECUTED
+        (the effective fold and dataflow, not the request)."""
+        if effective_k_fold is not None and effective_k_fold != choice.k_fold:
+            choice = dataclasses.replace(choice, k_fold=effective_k_fold)
+        if (effective_dataflow is not None
+                and effective_dataflow is not choice.dataflow):
+            choice = dataclasses.replace(choice, dataflow=effective_dataflow)
+        with self._lock:
+            self.applied.append((self.key_of(M, N, K, precision), choice))
+            self.applied_total += 1
+            self._m_applied.inc()
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "entries": len(self._entries),
+                    "applied": self.applied_total}
+
+    def reset(self) -> None:
+        """Zero the hit/miss counters without dropping entries or the
+        applied log (call after warmup; a later miss is a new shape)."""
+        with self._lock:
+            self.hits = 0
+            self.misses = 0

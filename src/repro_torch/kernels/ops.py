@@ -1,0 +1,128 @@
+"""The GEMM execution layer: schedule-driven ``matmul`` and ``GemmBackend``.
+
+``matmul`` consults a :class:`~repro_torch.core.scheduler.ScheduleCache`
+(the paper-§5 exploration, memoized per (M, N, K, precision)), applies the
+cached dataflow and fold to the mpgemm kernel, picks the Hopper tiling
+for that dataflow (``core.tiling``), and records what executed -- the
+effective fold and dataflow -- with ``note_applied``.
+
+:class:`GemmBackend` routes model projections (``models.layers.dense``
+and the LM head) through ``matmul`` when ``ModelConfig.gemm_backend ==
+"scheduled"``; ``backend_for(cfg)`` shares one backend, and so one
+schedule store, per config.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.dataflow import Dataflow
+from repro_torch.core.precision import precision_for_dtype
+from repro_torch.core.scheduler import ScheduleCache
+from repro_torch.core.tiling import FOLD_GRAIN, BlockConfig, \
+    choose_block_config
+from repro_torch.kernels import mpgemm as _mp
+
+
+@functools.lru_cache(maxsize=4096)
+def cached_block_config(M: int, N: int, K: int, ebytes: int, obytes: int,
+                        dataflow: Dataflow) -> BlockConfig:
+    """Memoized Hopper block choice for one static shape and dataflow."""
+    return choose_block_config(M, N, K, dataflow, ebytes=ebytes,
+                               obytes=obytes)
+
+
+def plan_blocks(M: int, N: int, K: int, ebytes: int, dataflow: Dataflow,
+                fold_req: int) -> tuple[int, int, int]:
+    """(bm, bn, bk) of a launch: the Hopper chooser's tile for this
+    dataflow, with bk dropped to ``FOLD_GRAIN`` when the chosen bk cannot
+    host the requested fold -- the granularity the scheduler's
+    realizable-fold filter assumed (the reference's rule,
+    ``kernels/ops.py:180-186``), so the fold executes as scheduled."""
+    cfg = cached_block_config(M, N, K, ebytes, 4, dataflow)
+    bk = cfg.bk
+    if fold_req > 1 and _mp.effective_fold(K, bk, fold_req) != fold_req:
+        bk = FOLD_GRAIN
+    return cfg.bm, cfg.bn, bk
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           dataflow: Dataflow = Dataflow.OS,
+           out_dtype: torch.dtype = torch.float32,
+           blocks: tuple[int, int, int] | None = None,
+           k_fold: int | None = None,
+           schedule: ScheduleCache | None = None) -> torch.Tensor:
+    """GEMM through the mpgemm kernel.
+
+    With ``schedule`` the cached (dataflow, k_fold) of this shape
+    overrides ``dataflow`` (SIMD runs the OS pipeline) and the application
+    is logged with the fold that executed.  ``k_fold`` forces a fold;
+    ``blocks`` forces (bm, bn, bk), else :func:`plan_blocks` picks them."""
+    M, K = a.shape
+    N = b.shape[1]
+    fold_req = k_fold
+    choice = None
+    if schedule is not None:
+        prec = precision_for_dtype(a.dtype)
+        choice = schedule.resolve(M, N, K, prec)
+        dataflow = (Dataflow.OS if choice.dataflow is Dataflow.SIMD
+                    else choice.dataflow)
+        if fold_req is None:
+            fold_req = choice.k_fold
+    fold_req = 1 if fold_req is None else fold_req
+
+    if blocks is None:
+        bm, bn, bk = plan_blocks(M, N, K, a.element_size(), dataflow,
+                                 fold_req)
+    else:
+        bm, bn, bk = blocks
+    ef = _mp.effective_fold(K, bk, fold_req)
+    out = _mp.mpgemm(a, b, dataflow=dataflow, bm=bm, bn=bn, bk=bk,
+                     k_fold=ef, out_dtype=out_dtype)
+    if schedule is not None:
+        # logged after the launch: the applied log lists only GEMMs that
+        # really executed
+        schedule.note_applied(M, N, K, prec, choice, effective_k_fold=ef,
+                              effective_dataflow=dataflow)
+    return out
+
+
+class GemmBackend:
+    """Routes model projections through the scheduled mpgemm kernels; its
+    only state is the :class:`ScheduleCache`."""
+
+    def __init__(self, schedule: ScheduleCache | None = None):
+        self.schedule = schedule or ScheduleCache()
+
+    def matmul(self, x2: torch.Tensor, w: torch.Tensor,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(M, K) @ (K, N) through the scheduled kernel."""
+        return matmul(x2, w, out_dtype=out_dtype, schedule=self.schedule)
+
+    def dense(self, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor | None = None) -> torch.Tensor:
+        """The scheduled ``layers.dense``: leading dims collapse to one
+        (B*S, K) GEMM emitted in the compute dtype, the bias is added in
+        fp32, and the result returns in x.dtype."""
+        lead, K = x.shape[:-1], x.shape[-1]
+        out = self.matmul(x.reshape(-1, K), w.to(x.dtype), out_dtype=x.dtype)
+        if b is not None:
+            out = out.float() + b.float()
+        return out.to(x.dtype).reshape(*lead, out.shape[-1])
+
+
+@functools.lru_cache(maxsize=64)
+def _backend_for_key(key) -> GemmBackend:
+    return GemmBackend()
+
+
+def backend_for(cfg) -> GemmBackend | None:
+    """The process-wide backend for a model config, or None when the
+    config keeps projections on ``torch.matmul`` (``gemm_backend !=
+    "scheduled"``).  Memoized by config equality, so every engine over the
+    same model shares one schedule store."""
+    if cfg.gemm_backend != "scheduled":
+        return None
+    return _backend_for_key(cfg)

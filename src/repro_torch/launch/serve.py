@@ -1,0 +1,107 @@
+"""Serving driver of the port: random weights from a seed, a batch of
+random greedy requests through the paged continuous-batching engine, and
+a report of throughput, time to first token (TTFT), time per output token
+(TPOT), schedule-cache hits and KV-pool use.
+
+    python -m repro_torch.launch.serve --arch qwen2_0_5b
+    python -m repro_torch.launch.serve --arch qwen2_0_5b --scaled-down \\
+        --gemm-backend scheduled --device cpu
+
+Runs on the CUDA card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs as CONFIGS
+from repro_torch.device import resolve_device
+from repro_torch.models import network as N
+from repro_torch.serving.engine import ContinuousEngine, Request
+
+
+def _pct(xs: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--scaled-down", action="store_true")
+    ap.add_argument("--gemm-backend", choices=("xla", "scheduled"),
+                    default="xla",
+                    help="scheduled = projections and the LM head through "
+                         "the mpgemm kernels under the paper-§5 schedule "
+                         "cache; xla = torch.matmul (default)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = CONFIGS.get(args.arch)
+    if args.scaled_down:
+        cfg = cfg.scaled_down()
+    cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend).validate()
+    params = N.init(cfg, args.seed, dev)
+
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(3, cfg.vocab, max(1, int(
+                        rng.integers(args.prompt_len // 2,
+                                     args.prompt_len + 1)))).astype(np.int32),
+                    max_new_tokens=max(1, int(rng.integers(
+                        args.max_new // 2, args.max_new + 1))), eos=-1)
+            for i in range(args.requests)]
+    eng = ContinuousEngine(cfg, params, slots=args.slots,
+                           max_len=args.max_len, device=dev)
+    eng.schedule.reset()        # count only the run, not construction
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    toks = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft_s for r in results]
+    tpot = [r.decode_s / (len(r.tokens) - 1) for r in results
+            if len(r.tokens) > 1]
+    st = eng.schedule.stats()
+    ps = eng.pool.stats()
+    kv = eng.kv_bytes()
+    report = {"device": str(dev), "requests": len(results),
+              "ok": sum(r.status == "ok" for r in results),
+              "new_tokens": toks, "wall_s": wall,
+              "tok_per_s": toks / max(wall, 1e-9),
+              "ttft_p50_ms": _pct(ttft, 50) * 1e3,
+              "ttft_p95_ms": _pct(ttft, 95) * 1e3,
+              "tpot_p50_ms": _pct(tpot, 50) * 1e3,
+              "schedule_hits": st["hits"], "schedule_misses": st["misses"],
+              "pool_peak_blocks": ps["peak_used"],
+              "pool_blocks": ps["num_blocks"],
+              "shared_token_hits": ps["shared_token_hits"]}
+    print(f"[serve:{cfg.name} {args.gemm_backend} on {dev}] "
+          f"{len(results)} requests, {toks} tokens in {wall:.2f}s "
+          f"({report['tok_per_s']:.1f} tok/s)  TTFT p50 "
+          f"{report['ttft_p50_ms']:.1f} ms p95 {report['ttft_p95_ms']:.1f} "
+          f"ms  TPOT p50 {report['tpot_p50_ms']:.2f} ms")
+    print(f"[serve] schedule cache: {st['entries']} schedules, "
+          f"{st['hits']} hits / {st['misses']} misses during the run")
+    print(f"[serve] kv pool: peak {ps['peak_used']}/{ps['num_blocks']} "
+          f"blocks, {ps['shared_token_hits']} shared-prefix token hits, "
+          f"peak KV {kv['peak']} / allocated {kv['allocated']} B")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,421 @@
+"""Block-paged KV pool: allocator, block tables, prefix sharing, COW.
+
+Host-side bookkeeping (numpy only) of the paged KV cache -- a copy of
+``repro.serving.kv_pool`` without the parts of later slices (quantized
+blocks, lazy growth and rollback for speculation, policy probes).  Device
+storage keeps every attention layer's K/V as one pool tensor
+``(num_blocks, block_size, n_kv_heads, head_dim)``; a slot's logical
+sequence is scattered across pool blocks named by its row of
+
+    tables : int32 (slots, blocks_per_slot)
+
+so token ``p`` of slot ``s`` lives at flat pool index
+``tables[s, p // block_size] * block_size + p % block_size``.
+
+Invariants:
+
+  * **Block 0 is the null/trash block**: never handed out; unallocated
+    table entries are 0 and out-of-range writes land there.  Reads are
+    masked by each slot's validity length.
+  * **Ref counts**: ``ref[b]`` counts the slots mapping ``b``, plus one if
+    the prefix cache holds it, plus one per pending COW copy reading it.
+    A block returns to the free list only at ref == 0.
+  * **Prefix sharing**: full prompt blocks are content-addressed by their
+    whole chained prefix; an admission maps every cached hit into the new
+    slot and skips its prefill.
+  * **Copy-on-write**: writes touch only blocks with ref == 1;
+    ``ensure_writable`` forks a shared block and queues the (src, dst)
+    device copy for the engine.
+  * **Eviction**: when a reservation cannot be met, least-recently-used
+    cached blocks nobody else maps are evicted; if that still falls short
+    the reservation returns None and the engine backs off.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from collections.abc import Sequence
+
+import numpy as np
+
+from repro_torch.obs.metrics import NULL_METRIC, MetricsRegistry
+
+#: the reserved null/trash block id
+NULL_BLOCK = 0
+
+
+class PoolAuditError(AssertionError):
+    """A pool invariant audit failed; ``report`` carries the violations,
+    the serialized pool state and the operation in flight."""
+
+    def __init__(self, violations: Sequence[str], pool_state: dict,
+                 pending_op: dict | None = None):
+        self.violations = list(violations)
+        self.report = {"violations": self.violations, "pool": pool_state,
+                       "pending_op": pending_op}
+        lines = "\n  ".join(self.violations)
+        op = f"\nduring op: {pending_op!r}" if pending_op else ""
+        super().__init__(
+            f"KV pool audit failed ({len(self.violations)} violation(s)):"
+            f"\n  {lines}{op}\nreproducer: {self.report!r}")
+
+
+def blocks_for(n_tokens: int, block_size: int) -> int:
+    """Number of blocks covering ``n_tokens`` positions."""
+    return -(-max(0, int(n_tokens)) // block_size)
+
+
+def _hash_to_json(h: tuple) -> list:
+    return [_hash_to_json(x) if isinstance(x, tuple) else int(x) for x in h]
+
+
+@dataclasses.dataclass
+class AdmitPlan:
+    """Result of a successful admission reservation."""
+
+    slot: int
+    shared_tokens: int          # prefix length already resident
+    shared_blocks: tuple[int, ...]
+    new_blocks: tuple[int, ...]
+
+
+class KVPool:
+    """Host-side bookkeeping for the paged KV cache (see module docstring).
+    It never touches device memory: it hands the engine block ids, table
+    rows and pending (src, dst) copies."""
+
+    _m_shared = _m_cow = _m_evict = _m_backoff = NULL_METRIC
+    _m_peak = _m_used = NULL_METRIC
+
+    def __init__(self, num_blocks: int, block_size: int, *, slots: int,
+                 max_len: int, share_prefixes: bool = True,
+                 metrics: MetricsRegistry | None = None):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be positive")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.slots = slots
+        self.max_len = max_len
+        self.blocks_per_slot = blocks_for(max_len, block_size)
+        self.share_prefixes = share_prefixes
+        self._free: collections.deque[int] = collections.deque(
+            range(1, num_blocks))
+        self.ref = np.zeros(num_blocks, np.int32)
+        self.ref[NULL_BLOCK] = 1                       # pinned forever
+        self.tables = np.full((slots, self.blocks_per_slot), NULL_BLOCK,
+                              np.int32)
+        self.n_slot_blocks = np.zeros(slots, np.int32)
+        # prefix cache: chained key -> block id, LRU-ordered for eviction
+        self._prefix: collections.OrderedDict[tuple, int] = (
+            collections.OrderedDict())
+        self._hash_of: dict[int, tuple] = {}
+        #: (src, dst) copies the engine must apply on-device (COW forks)
+        self.pending_copies: list[tuple[int, int]] = []
+        self.peak_used = 0
+        self.shared_token_hits = 0
+        self.cow_forks = 0
+        self.evictions = 0
+        self.backoffs = 0
+        if metrics is not None:
+            self.bind_metrics(metrics)
+
+    def bind_metrics(self, metrics: MetricsRegistry) -> None:
+        """Mirror pool telemetry into ``kv_pool.*`` registry metrics."""
+        self._m_shared = metrics.counter(
+            "kv_pool.shared_token_hits",
+            "prompt tokens skip-prefilled via the prefix cache")
+        self._m_cow = metrics.counter(
+            "kv_pool.cow_forks", "copy-on-write block forks")
+        self._m_evict = metrics.counter(
+            "kv_pool.evictions", "cached prefix blocks evicted")
+        self._m_backoff = metrics.counter(
+            "kv_pool.backoffs", "reservations denied (pool exhausted)")
+        self._m_peak = metrics.gauge(
+            "kv_pool.peak_used_blocks", "high-watermark of used blocks")
+        self._m_used = metrics.gauge(
+            "kv_pool.used_blocks", "blocks currently in use")
+
+    # -- accounting ----------------------------------------------------------
+
+    @property
+    def used_blocks(self) -> int:
+        """Blocks out of the free list (excluding the null block)."""
+        return self.num_blocks - 1 - len(self._free)
+
+    def _note_usage(self) -> None:
+        self.peak_used = max(self.peak_used, self.used_blocks)
+        self._m_peak.set(self.peak_used)
+        self._m_used.set(self.used_blocks)
+
+    # -- raw allocation ------------------------------------------------------
+
+    def _alloc_one(self) -> int | None:
+        if not self._free:
+            return None
+        bid = self._free.popleft()
+        assert self.ref[bid] == 0, (bid, self.ref[bid])
+        self.ref[bid] = 1
+        self._note_usage()
+        return bid
+
+    def _release_one(self, bid: int) -> None:
+        if bid == NULL_BLOCK:
+            return
+        assert self.ref[bid] > 0, bid
+        self.ref[bid] -= 1
+        if self.ref[bid] == 0:
+            assert bid not in self._hash_of, bid
+            self._free.append(bid)
+
+    def _evict_cached(self, need: int) -> None:
+        """Unregister LRU prefix blocks nobody else maps until ``need``
+        free blocks exist (or the cache is exhausted)."""
+        if need <= len(self._free):
+            return
+        for h in list(self._prefix):
+            bid = self._prefix[h]
+            if self.ref[bid] == 1:          # only the map holds it
+                del self._prefix[h]
+                del self._hash_of[bid]
+                self._release_one(bid)
+                self.evictions += 1
+                self._m_evict.inc()
+                if len(self._free) >= need:
+                    return
+
+    def reserve(self, n: int) -> list[int] | None:
+        """Allocate ``n`` blocks atomically (evicting cached prefix blocks
+        if needed); None and a recorded backoff when the pool cannot."""
+        self._evict_cached(n)
+        if len(self._free) < n:
+            self.backoffs += 1
+            self._m_backoff.inc()
+            return None
+        return [self._alloc_one() for _ in range(n)]
+
+    # -- prefix sharing ------------------------------------------------------
+
+    @staticmethod
+    def _chain_hashes(tokens: Sequence[int], block_size: int,
+                      n_blocks: int) -> list[tuple]:
+        """Chained content keys, one per full block: block j's key is
+        (parent key, block-j tokens) -- the full chain, so two prefixes
+        can never alias a block."""
+        hs: list[tuple] = []
+        h: tuple = ()
+        toks = [int(t) for t in tokens[:n_blocks * block_size]]
+        for j in range(n_blocks):
+            h = (h, tuple(toks[j * block_size:(j + 1) * block_size]))
+            hs.append(h)
+        return hs
+
+    def match_prefix(self, prompt: Sequence[int]) -> list[int]:
+        """Longest run of cached full prompt blocks, each ref'd for the
+        caller.  The last prompt token is never shared: its logits seed
+        decode."""
+        if not self.share_prefixes:
+            return []
+        nfull = (len(prompt) - 1) // self.block_size
+        out: list[int] = []
+        for h in self._chain_hashes(prompt, self.block_size, nfull):
+            bid = self._prefix.get(h)
+            if bid is None:
+                break
+            self._prefix.move_to_end(h)                # LRU touch
+            self.ref[bid] += 1
+            out.append(bid)
+        return out
+
+    def register_prefix(self, prompt: Sequence[int],
+                        blocks: Sequence[int]) -> None:
+        """Content-address the prompt's full blocks; a newly registered
+        block gains the map's pinning ref."""
+        if not self.share_prefixes:
+            return
+        nfull = min((len(prompt) - 1) // self.block_size, len(blocks))
+        for j, h in enumerate(self._chain_hashes(prompt, self.block_size,
+                                                 nfull)):
+            bid = int(blocks[j])
+            if h in self._prefix or bid in self._hash_of:
+                continue
+            self._prefix[h] = bid
+            self._hash_of[bid] = h
+            self.ref[bid] += 1
+
+    # -- admission / release -------------------------------------------------
+
+    def admit(self, slot: int, prompt: Sequence[int],
+              max_new_tokens: int) -> AdmitPlan | None:
+        """Reserve everything the request can touch in ``slot``: shared
+        prefix blocks are mapped in, the rest is allocated up front so
+        decode never fails mid-flight.  None = clean backoff."""
+        assert self.n_slot_blocks[slot] == 0, f"slot {slot} not released"
+        total = min(blocks_for(len(prompt) + max_new_tokens,
+                               self.block_size), self.blocks_per_slot)
+        shared = self.match_prefix(prompt)
+        if len(shared) > total:
+            for bid in shared[total:]:
+                self._release_one(bid)
+            shared = shared[:total]
+        fresh = self.reserve(total - len(shared))
+        if fresh is None:
+            for bid in shared:
+                self._release_one(bid)
+            return None
+        row = list(shared) + fresh
+        self.tables[slot, :len(row)] = row
+        self.tables[slot, len(row):] = NULL_BLOCK
+        self.n_slot_blocks[slot] = len(row)
+        self.shared_token_hits += len(shared) * self.block_size
+        self._m_shared.inc(len(shared) * self.block_size)
+        self._note_usage()
+        return AdmitPlan(slot=slot,
+                         shared_tokens=len(shared) * self.block_size,
+                         shared_blocks=tuple(shared),
+                         new_blocks=tuple(fresh))
+
+    def release_slot(self, slot: int, *, prompt: Sequence[int] | None
+                     = None) -> None:
+        """Drop the slot's refs; with ``prompt`` its full blocks are first
+        registered in the prefix cache so they survive the release."""
+        n = int(self.n_slot_blocks[slot])
+        row = [int(b) for b in self.tables[slot, :n]]
+        if prompt is not None:
+            self.register_prefix(prompt, row)
+        self._scrub_pending(set(row))
+        for bid in row:
+            self._release_one(bid)
+        self.tables[slot, :] = NULL_BLOCK
+        self.n_slot_blocks[slot] = 0
+
+    # -- copy-on-write -------------------------------------------------------
+
+    def ensure_writable(self, slot: int, first_pos: int, last_pos: int
+                        ) -> None:
+        """Fork any shared block the write span [first_pos, last_pos]
+        touches.  The slot's ref on the source moves to the pending-copy
+        entry and is released by :meth:`take_copies`, so the source cannot
+        be freed and re-allocated before the device copy runs."""
+        j0 = first_pos // self.block_size
+        j1 = min(last_pos // self.block_size, self.blocks_per_slot - 1)
+        for j in range(j0, j1 + 1):
+            bid = int(self.tables[slot, j])
+            if bid == NULL_BLOCK or self.ref[bid] <= 1:
+                continue
+            fresh = self._alloc_one()
+            if fresh is None:
+                self._evict_cached(1)
+                fresh = self._alloc_one()
+                if fresh is None:
+                    raise MemoryError("KV pool exhausted during COW fork")
+            self.pending_copies.append((bid, fresh))
+            self.cow_forks += 1
+            self._m_cow.inc()
+            self.tables[slot, j] = fresh
+
+    def take_copies(self) -> list[tuple[int, int]]:
+        """Pop the queued (src, dst) COW copies for on-device execution,
+        releasing each source's pending pin."""
+        out, self.pending_copies = self.pending_copies, []
+        for src, _dst in out:
+            self._release_one(src)
+        return out
+
+    def _scrub_pending(self, dropped: set[int]) -> None:
+        """Drop queued copies into released blocks (and their pins)."""
+        if not self.pending_copies:
+            return
+        keep: list[tuple[int, int]] = []
+        for src, dst in self.pending_copies:
+            if dst in dropped:
+                self._release_one(src)
+            else:
+                keep.append((src, dst))
+        self.pending_copies = keep
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> dict[str, int]:
+        return {"num_blocks": self.num_blocks - 1,
+                "block_size": self.block_size,
+                "used": self.used_blocks,
+                "peak_used": self.peak_used,
+                "cached_prefix_blocks": len(self._prefix),
+                "shared_token_hits": self.shared_token_hits,
+                "cow_forks": self.cow_forks,
+                "evictions": self.evictions,
+                "backoffs": self.backoffs}
+
+    def snapshot_state(self) -> dict:
+        """JSON-serializable dump of the pool state (audit reproducers)."""
+        return {
+            "num_blocks": int(self.num_blocks),
+            "block_size": int(self.block_size),
+            "slots": int(self.slots),
+            "max_len": int(self.max_len),
+            "share_prefixes": bool(self.share_prefixes),
+            "free": [int(b) for b in self._free],
+            "ref": [int(r) for r in self.ref],
+            "tables": self.tables.tolist(),
+            "n_slot_blocks": [int(n) for n in self.n_slot_blocks],
+            "prefix": [[_hash_to_json(h), int(b)]
+                       for h, b in self._prefix.items()],
+            "pending_copies": [[int(s), int(d)]
+                               for s, d in self.pending_copies],
+        }
+
+    def audit_violations(self) -> list[str]:
+        """Every broken invariant (empty when consistent): ref
+        conservation, the free list holding exactly the ref == 0 blocks
+        once each, and pending copies between live blocks."""
+        out: list[str] = []
+        counts = np.zeros(self.num_blocks, np.int64)
+        counts[NULL_BLOCK] += 1
+        for s in range(self.slots):
+            for b in self.tables[s, :self.n_slot_blocks[s]]:
+                counts[int(b)] += 1
+        for bid in self._hash_of:
+            counts[bid] += 1
+        for src, _dst in self.pending_copies:
+            counts[int(src)] += 1
+        free_list = [int(b) for b in self._free]
+        free = set(free_list)
+        if len(free) != len(free_list):
+            dupes = sorted(b for b in free if free_list.count(b) > 1)
+            out.append(f"double free: blocks {dupes} appear more than "
+                       f"once on the free list")
+        if NULL_BLOCK in free:
+            out.append("null block on the free list")
+        for bid in range(self.num_blocks):
+            c, r = int(counts[bid]), int(self.ref[bid])
+            if c != r:
+                kind = ("leak (ref outlives users)" if r > c
+                        else "dangling use (users outnumber ref)")
+                out.append(f"refcount: block {bid} has {c} user(s) but "
+                           f"ref {r} — {kind}")
+            if r > 0 and bid in free:
+                out.append(f"block {bid} on the free list with ref {r} "
+                           f"(use-after-free window)")
+            if r == 0 and bid not in free:
+                out.append(f"block {bid} has ref 0 but is not on the "
+                           f"free list (leaked)")
+            if r == 0 and bid in self._hash_of:
+                out.append(f"prefix cache maps freed block {bid}")
+        for src, dst in self.pending_copies:
+            if self.ref[int(src)] <= 0:
+                out.append(f"pending COW copy reads freed source block "
+                           f"{int(src)}")
+            if self.ref[int(dst)] <= 0:
+                out.append(f"pending COW copy writes freed destination "
+                           f"block {int(dst)}")
+        return out
+
+    def check(self, pending_op: dict | None = None) -> None:
+        """Raise :class:`PoolAuditError` when any invariant is broken."""
+        violations = self.audit_violations()
+        if violations:
+            raise PoolAuditError(violations, self.snapshot_state(),
+                                 pending_op)

@@ -1,0 +1,102 @@
+"""Guards of the port's boundary: ``repro_torch`` and ``chip_smoke.py``
+never import JAX or the reference package, and the public entry points
+refuse to run on the CPU unless asked to."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules() -> list[str]:
+    out = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        out.append(".".join(parts))
+    return out
+
+
+def test_port_imports_without_jax():
+    """Every module of the port, and chip_smoke.py (imported, not run),
+    loads in a process where ``import jax`` fails."""
+    code = "\n".join([
+        "import importlib, importlib.util, sys",
+        "sys.modules['jax'] = None",
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})",
+        f"for name in {_modules()!r}:",
+        "    importlib.import_module(name)",
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r})",
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        "assert not any(m == 'repro' or m.startswith(('repro.', 'jax'))",
+        "               for m in sys.modules if sys.modules[m] is not None)",
+        "print('ok')",
+    ])
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_entry_points_refuse_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without CUDA")
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import network as N
+    from repro_torch.serving.engine import ContinuousEngine
+    cfg = configs.get("qwen2_0_5b").scaled_down()
+    params = N.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousEngine(cfg, params, slots=2, max_len=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        N.init(cfg)
+    q = torch.zeros(1, 1, 1, 8)
+    pool = torch.zeros(2, 4, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PA.decode_attention(q, pool, pool, torch.ones(1, 1, dtype=torch.int32),
+                            torch.ones(1, dtype=torch.int32), scale=1.0)
+
+
+def test_kernel_wrappers_never_fall_back():
+    """A tensor on a device other than the CPU never reaches the plain
+    version: the wrappers launch the kernel or raise."""
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.kernels import mpgemm as MP
+    a = torch.zeros(4, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        MP.mpgemm(a, torch.zeros(32, 64, device="meta"),
+                  dataflow=Dataflow.IS, bm=16, bn=64, bk=32)
+
+
+def test_chip_smoke_refuses_without_port(tmp_path):
+    """Alone in a directory, chip_smoke.py exits non-zero with no result."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and '"ok"' not in res.stdout

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card (marker ``gpu``) and skips without one;
+the file imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances: fp32 results to 1e-4 (the reference's GEMM bound; the kernel
+and the plain version sum in different orders), bf16 outputs to 2e-2
+(one bf16 rounding of values of order 1, 2^-7, plus order effects).
+"""
+
+import dataclasses
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as TC
+from repro_torch.core import tiling
+from repro_torch.core.dataflow import Dataflow
+from repro_torch.kernels import mpgemm as TMP
+from repro_torch.kernels import paged_attention as TPA
+from repro_torch.models import network as TN
+from repro_torch.serving.engine import ContinuousEngine, Request
+from _torch_port import cuda  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.gpu
+
+
+def _decode_inputs(dev, dtype, B=8, KV=2, G=7, hd=64, bs=16, nbs=8,
+                   lens=(0, 1, 16, 128, 77, 33, 5, 100)):
+    gen = torch.Generator().manual_seed(3)
+    nb = 1 + B * nbs
+    q = torch.randn(B, KV, G, hd, generator=gen)
+    k = torch.randn(nb, bs, KV, hd, generator=gen)
+    v = torch.randn(nb, bs, KV, hd, generator=gen)
+    table = (1 + torch.randperm(nb - 1, generator=gen)[:B * nbs]
+             ).reshape(B, nbs).int()
+    lens = torch.tensor(lens, dtype=torch.int32)
+    for b in range(B):
+        table[b, -(-int(lens[b]) // bs):] = 0        # NULL past the length
+    return [t.to(dev, dtype) for t in (q, k, v)] + [table.to(dev),
+                                                   lens.to(dev)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, tol):
+    args = _decode_inputs(cuda, dtype)
+    before = TPA.launches.count
+    for window, cap in ((None, None), (24, 30.0)):
+        got = TPA.paged_decode(*args, scale=0.125, window=window,
+                               logit_cap=cap)
+        want = TPA.gather_fallback(*args, scale=0.125, window=window,
+                                   logit_cap=cap)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert not got[0].any()                       # length-0 row: zeros
+    assert TPA.launches.count == before + 2
+
+
+@pytest.mark.parametrize("df", [Dataflow.OS, Dataflow.WS, Dataflow.IS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mpgemm_kernel_matches_plain(cuda, df, dtype):
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn(100, 200, generator=gen).to(cuda, dtype)
+    b = torch.randn(200, 150, generator=gen).to(cuda, dtype)
+    for (bm, bn), bk, f in itertools.product(tiling.KERNEL_TILES,
+                                             (32, 64, 128), (1, 2)):
+        for out_dtype in (torch.float32, dtype):
+            got = TMP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                             k_fold=f, out_dtype=out_dtype)
+            want = TMP.mpgemm_plain(a, b, bk=bk, k_fold=f,
+                                    out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            tol = 1e-4 if out_dtype == torch.float32 else 2e-2
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+    # a transposed operand (the LM head's table view) takes the strided path
+    got = TMP.mpgemm(a, b.t().contiguous().t(), dataflow=df, bm=16, bn=64,
+                     bk=32)
+    torch.testing.assert_close(got, TMP.mpgemm_plain(a, b, bk=32, k_fold=1,
+                                                     out_dtype=torch.float32),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_engine_backends_agree_on_card(cuda):
+    """Scaled-down fp32: greedy tokens identical under both backends (the
+    reference's paged_sched contract), every request finished."""
+    base = TC.get("qwen2_0_5b").scaled_down()
+    params = TN.init(base, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(3, base.vocab, int(rng.integers(5, 60))
+                                    ).astype(np.int32), 8, eos=-1)
+            for i in range(4)]
+    tokens = {}
+    for backend in ("xla", "scheduled"):
+        cfg = dataclasses.replace(base, gemm_backend=backend)
+        eng = ContinuousEngine(cfg, params, slots=2, max_len=128,
+                               audit=True, device=cuda)
+        res = eng.run(reqs)
+        assert all(r.status == "ok" and len(r.tokens) == 8 for r in res)
+        tokens[backend] = {r.rid: r.tokens.tolist() for r in res}
+    assert tokens["xla"] == tokens["scheduled"]
