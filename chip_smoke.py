@@ -22,7 +22,24 @@ Phases, in order (each failure is reported and the script exits 1):
   7. each kernel timed at the path's shapes beside its bound, its plain
      version and one library call that computes the same function;
   8. one full-width decode step profiled (torch.profiler): wall time,
-     device time, kernel launches and the heaviest kernels.
+     device time, kernel launches and the heaviest kernels, for the fp
+     and the int8 model under both backends.
+
+The int8 quantized path adds, after phase 4:
+
+  K1-int8 against its plain version on the cases of phase 3 with int8
+  pools and fp32 scales; K3 (quant_matmul) against its plain version at
+  every projection shape of the path (M = 8 and 256, and M that are not
+  tile multiples), x in fp32 and bf16; and after phase 6:
+
+  the int8 main path: the same model and requests as phase 5 with
+  ``quant_serving`` (int8 weights, int8 KV blocks), under both backends,
+  with per-run launch counts (K3 168 a step under scheduled and 0 under
+  xla, K1-int8 24 a decode step, the fp K1 never), the pool audit after
+  every step, no schedule-cache miss and the KV bytes against the fp
+  pool; and the scaled-down fp32 int8 model at weights x5: tokens
+  identical across backends, agreement with the fp engine reported, and
+  the reference's >= 0.99 agreement gate at its own test geometry.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -52,6 +69,9 @@ K1_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
 K1_REPLACES = "src/repro/kernels/paged_attention.py:123"
 K2_SOURCE = "src/repro_torch/kernels/csrc/mpgemm.cu"
 K2_REPLACES = "src/repro/kernels/mpgemm.py:183"
+K1I_REPLACES = "src/repro/kernels/paged_attention.py:87"
+K3_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
+K3_REPLACES = "src/repro/kernels/quant_matmul.py:45"
 
 
 def smi_line() -> str:
@@ -70,7 +90,8 @@ class Smoke:
         self.args = args
         self.failures: list[str] = []
         self.report: dict = {"phases": {}}
-        self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0}
+        self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0,
+                     "paged_decode_int8": 0.0, "quant_matmul": 0.0}
 
     def phase(self, name: str, fn) -> None:
         print(f"== {name}", flush=True)
@@ -120,6 +141,9 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (device and build "
+                         "always run); a partial run prints no result")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -140,8 +164,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import mpgemm as MP
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_matmul as QM
     from repro_torch.models import network as N
     from repro_torch.models.layers import tree_map
+    from repro_torch.quant.policy import QuantPolicy, serving_quant_params
     from repro_torch.serving.engine import ContinuousEngine, Request
 
     dev = torch.device("cuda")
@@ -268,6 +294,84 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"K2 mismatches: {bad[:3]}")
 
+    # -- 4b. K1-int8 and K3 against their plain versions --------------------
+    def int8_kv(shape, seed):
+        """Random int8 K/V pools and fp32 scales of the size amax / 127
+        takes for values of order 1."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k8, v8 = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (0.001 + 0.03 * torch.rand(shape[:3], generator=gen,
+                                            device=dev) for _ in range(2))
+        return k8, v8, ks, vs
+
+    def p_k1_int8():
+        lens = [0, 1, 16, 17, 1024, 300, 511, 64]    # 64 x 16 = full table
+        out = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q, k, _v, table, lens_t = decode_inputs(dtype, lens)
+            k8, v8, ks, vs = int8_kv(k.shape, 2)
+            for window, cap in ((None, None), (200, 30.0)):
+                kw = dict(scale=0.125, window=window, logit_cap=cap,
+                          k_scale=ks, v_scale=vs)
+                got = PA.paged_decode(q, k8, v8, table, lens_t, **kw)
+                want = PA.gather_fallback(q, k8, v8, table, lens_t, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                key = f"{str(dtype)[6:]} window={window} softcap={cap}"
+                out[key] = err
+                sm.kerr["paged_decode_int8"] = max(
+                    sm.kerr["paged_decode_int8"], err)
+                ok = err <= tol and not got[0].any() \
+                    and bool(torch.isfinite(got).all())
+                print(f"K1-int8 {key}: max|err| {err:.3e} (tol {tol}) "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"K1-int8 {key}: err {err} > {tol} "
+                                         f"or non-zero length-0 row")
+        rep["k1_int8_check"] = out
+
+    def quant_inputs(M, N, K, dtype, seed):
+        # x ~ N(0, 1/K) as after RMSNorm; the weight quantized per channel
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = (torch.randn(M, K, generator=gen, device=dev) / K ** 0.5
+             ).to(dtype)
+        w8, sc = OPS.quantize_weights(
+            0.02 * torch.randn(K, N, generator=gen, device=dev))
+        return x, w8, sc
+
+    k3_shapes = [(M, N, K) for M in (8, 256) for N, K in path_nk[:4]]
+
+    def p_k3():
+        shapes = k3_shapes + [(5, 896, 896), (37, 4864, 896),
+                              (300, 128, 896)]     # M off the tile grid
+        rows, worst = [], {}
+        for (M, N, K), dtype in [(s_, d) for s_ in shapes
+                                 for d in (torch.float32, torch.bfloat16)]:
+            x, w8, sc = quant_inputs(M, N, K, dtype, M + N + K)
+            got = QM.quant_matmul(x, w8, sc)
+            want = QM.quant_matmul_ref(x, w8, sc)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            rel = (diff / (1.0 + want.abs())).max().item()
+            err = diff.max().item()
+            sm.kerr["quant_matmul"] = max(sm.kerr["quant_matmul"], err)
+            key = str(dtype)[6:]
+            worst[key] = max(worst.get(key, 0.0), rel)
+            rows.append({"M": M, "N": N, "K": K, "dtype": key,
+                         "tile": list(QM.TILES[QM.tile_for(M, N)]),
+                         "max_abs_err": err, "max_rel_err": rel,
+                         "ok": rel <= 1e-4 and got.dtype == torch.float32})
+        rep["k3_check"] = rows
+        for key, rel in worst.items():
+            print(f"K3 x {key}: worst |err|/(1+|ref|) {rel:.3e} over "
+                  f"{len(shapes)} shapes")
+        bad = [r for r in rows if not r["ok"]]
+        print(f"K3: {len(rows) - len(bad)}/{len(rows)} cases within "
+              f"|err|/(1+|ref|) <= 1e-4 (fp32 out)")
+        if bad:
+            raise AssertionError(f"K3 mismatches: {bad[:3]}")
+
     # -- 5. the main path ---------------------------------------------------
     def requests(rng, n, lo, hi, new, vocab, prefix=0):
         pre = rng.integers(3, vocab, prefix).astype(np.int32)
@@ -275,22 +379,27 @@ def main(argv=None) -> int:
             [pre, rng.integers(3, vocab, int(rng.integers(lo, hi)))
              .astype(np.int32)]), new, eos=-1) for i in range(n)]
 
-    def serve(cfg, params, reqs, slots, max_len, audit):
+    def serve(cfg, params, reqs, slots, max_len, audit, quant_policy=None):
         """One engine run; the schedule stats and the launch counts cover
         only this run (zeroed just before it, read just after)."""
         eng = ContinuousEngine(cfg, params, slots=slots, max_len=max_len,
-                               audit=audit, device=dev)
+                               audit=audit, quant_policy=quant_policy,
+                               device=dev)
         eng.schedule.reset()
         torch.cuda.synchronize()
         PA.launches.reset()
+        PA.launches_int8.reset()
         MP.reset_launches()
+        QM.launches.reset()
         t0 = time.perf_counter()
         res = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"paged_decode": PA.launches.count,
                   "mpgemm": MP.launches.count,
-                  "mpgemm_by_dataflow": dict(MP.launches_by_dataflow)}
+                  "mpgemm_by_dataflow": dict(MP.launches_by_dataflow),
+                  "paged_decode_int8": PA.launches_int8.count,
+                  "quant_matmul": QM.launches.count}
         return eng, sorted(res, key=lambda r: r.rid), wall, counts
 
     def summary(eng, res, wall):
@@ -312,12 +421,44 @@ def main(argv=None) -> int:
 
     full = CONFIGS.get("qwen2_0_5b")
     main_launches: dict = {}
+    main_tokens: dict = {}
+    quant_launches: dict = {}
     full_params: dict = {}
+    full_quant = dataclasses.replace(full, quant_serving=True)
 
     def params_full():
         if not full_params:
             full_params["p"] = N.init(full, args.seed, dev)
         return full_params["p"]
+
+    def params_quant():
+        """Phase 5's weights quantized once (the engine's default policy;
+        an already-quantized tree passes through the engine unchanged)."""
+        if "q" not in full_params:
+            full_params["q"] = serving_quant_params(full_quant,
+                                                    params_full())
+        return full_params["q"]
+
+    def prefill_logits(cfgs, params, rng, tag):
+        """Logits of a short two-row prefill under both backends."""
+        logits = {}
+        table = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
+        toks = torch.from_numpy(rng.integers(3, full.vocab, (2, 32))
+                                .astype(np.int32)).to(dev)
+        lens = torch.tensor([32, 20], dtype=torch.int32, device=dev)
+        for b, cfg in cfgs.items():
+            caches = N.expand_cache_pos(
+                N.init_paged_caches(cfg, 2, 9, 16, device=dev), 2)
+            logits[b], _ = N.prefill_paged_chunk(
+                params, cfg, toks, caches, torch.arange(
+                    2, dtype=torch.int32, device=dev), table, lens, lens - 1)
+        lx, ls = logits["xla"], logits["scheduled"]
+        rel = ((lx - ls).abs().max() / lx.abs().max()).item()
+        rep[f"{tag}_logits_rel_diff"] = rel
+        print(f"{tag}: prefill logits {tuple(lx.shape)} finite: "
+              f"{bool(torch.isfinite(lx).all() and torch.isfinite(ls).all())}"
+              f", max|xla - scheduled| / max|xla| = {rel:.2e}")
+        return lx, ls
 
     def p_main():
         params = params_full()
@@ -340,6 +481,7 @@ def main(argv=None) -> int:
             runs[b]["launches"] = counts
             main_launches[b] = counts
             tokens[b] = [r.tokens.tolist() for r in res]
+        main_tokens.update(tokens)
         rep["main"] = runs
         rep["main_launches"] = main_launches
         rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -357,24 +499,7 @@ def main(argv=None) -> int:
                   f"{r['schedule_hits']} hits / {r['schedule_misses']} "
                   f"misses, launches {r['launches']}")
         print(f"greedy agreement xla vs scheduled (bf16): {same}/{total}")
-        # logits of a short prefill under both backends: finite, (B, V)
-        logits = {}
-        table = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
-        toks = torch.from_numpy(rng.integers(3, full.vocab, (2, 32))
-                                .astype(np.int32)).to(dev)
-        lens = torch.tensor([32, 20], dtype=torch.int32, device=dev)
-        for b, cfg in cfgs.items():
-            caches = N.expand_cache_pos(
-                N.init_paged_caches(cfg, 2, 9, 16, device=dev), 2)
-            logits[b], _ = N.prefill_paged_chunk(
-                params, cfg, toks, caches, torch.arange(
-                    2, dtype=torch.int32, device=dev), table, lens, lens - 1)
-        lx, ls = logits["xla"], logits["scheduled"]
-        rel = ((lx - ls).abs().max() / lx.abs().max()).item()
-        rep["main_logits_rel_diff"] = rel
-        print(f"prefill logits {tuple(lx.shape)} finite: "
-              f"{bool(torch.isfinite(lx).all() and torch.isfinite(ls).all())}"
-              f", max|xla - scheduled| / max|xla| = {rel:.2e}")
+        lx, ls = prefill_logits(cfgs, params, rng, "main")
         bad = [b for b, r in runs.items()
                if r["ok"] != 8 or r["new_tokens"] != 8 * 32
                or r["schedule_misses"] != 0 or r["schedule_hits"] == 0]
@@ -385,9 +510,91 @@ def main(argv=None) -> int:
             raise AssertionError(f"a kernel never launched: {main_launches}")
         if main_launches["xla"]["mpgemm"] != 0:
             raise AssertionError("the xla backend launched mpgemm")
+        if any(c["quant_matmul"] or c["paged_decode_int8"]
+               for c in main_launches.values()):
+            raise AssertionError(f"the fp model launched an int8 kernel: "
+                                 f"{main_launches}")
         if tuple(lx.shape) != (2, full.vocab) or not (
                 torch.isfinite(lx).all() and torch.isfinite(ls).all()):
             raise AssertionError("full-width logits not finite / bad shape")
+
+    # -- 5b. the int8 main path ----------------------------------------------
+    def p_quant_main():
+        params = params_quant()
+        rng = np.random.default_rng(args.seed)
+        reqs = requests(rng, 8, 64, 513, 32, full.vocab)   # phase 5's set
+        cfgs = {b: dataclasses.replace(full_quant, gemm_backend=b)
+                for b in ("xla", "scheduled")}
+        for b, cfg in cfgs.items():         # warm-up
+            warm = requests(np.random.default_rng(99), 2, 40, 41, 4,
+                            full.vocab)
+            ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                             device=dev).run(warm)
+        torch.cuda.synchronize()
+        runs, tokens, engines = {}, {}, {}
+        for b, cfg in cfgs.items():
+            eng, res, wall, counts = serve(cfg, params, reqs, 8, 1024,
+                                           audit=True)
+            runs[b] = summary(eng, res, wall)
+            runs[b]["launches"] = counts
+            quant_launches[b] = counts
+            tokens[b] = [r.tokens.tolist() for r in res]
+            engines[b] = eng
+        per_step = 7 * full.n_layers            # q k v o gate up down
+        fp_eng = ContinuousEngine(full, params_full(), slots=8,
+                                  max_len=1024, device=dev)
+        q_alloc = engines["xla"].kv_bytes()["allocated"]
+        fp_alloc = fp_eng.kv_bytes()["allocated"]
+        del fp_eng
+        rep["quant_kv_ratio"] = q_alloc / fp_alloc
+        total = sum(len(t) for t in tokens["xla"])
+        agree = {"xla_vs_scheduled": sum(
+            x == y for tx, ts in zip(tokens["xla"], tokens["scheduled"])
+            for x, y in zip(tx, ts)) / total}
+        if main_tokens:
+            agree["vs_fp_xla"] = sum(
+                x == y for tx, tf in zip(tokens["xla"], main_tokens["xla"])
+                for x, y in zip(tx, tf)) / total
+        rep["quant_main"] = runs
+        rep["quant_main_agreement"] = agree
+        for b, r in runs.items():
+            print(f"[{card}] qwen2-0.5b full width, int8, {b}: {r['ok']}/"
+                  f"{r['requests']} ok, {r['new_tokens']} tokens in "
+                  f"{r['wall_s']:.2f} s = {r['tok_per_s']:.1f} tok/s, TTFT "
+                  f"p50 {r['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                  f"{r['tpot_p50_ms']:.2f} ms, schedule cache "
+                  f"{r['schedule_hits']} hits / {r['schedule_misses']} "
+                  f"misses, {r['decode_steps']} decode + "
+                  f"{r['chunk_steps']} chunk steps, launches "
+                  f"{r['launches']}")
+        print(f"int8 KV pool bytes / bf16 KV pool bytes = "
+              f"{q_alloc}/{fp_alloc} = {q_alloc / fp_alloc:.4f} "
+              f"(expected (hd + 4) / (2 hd) = "
+              f"{(full.hd + 4) / (2 * full.hd):.4f})")
+        print(f"greedy agreement (bf16, random weights): {agree}")
+        lx, ls = prefill_logits(cfgs, params, rng, "quant_main")
+        bad = [b for b, r in runs.items()
+               if r["ok"] != 8 or r["new_tokens"] != 8 * 32
+               or r["schedule_misses"] != 0 or r["schedule_hits"] == 0]
+        if bad:
+            raise AssertionError(f"int8 main path runs failed checks: {bad}")
+        for b, r in runs.items():
+            c, steps = r["launches"], r["decode_steps"] + r["chunk_steps"]
+            want = {"paged_decode": 0,
+                    "paged_decode_int8": full.n_layers * r["decode_steps"],
+                    "quant_matmul": per_step * steps if b == "scheduled"
+                    else 0,
+                    "mpgemm": steps if b == "scheduled" else 0}
+            got = {k: c[k] for k in want}
+            if got != want or r["decode_steps"] == 0:
+                raise AssertionError(f"int8 {b} launches {got}, expected "
+                                     f"{want}")
+        if q_alloc * 2 * full.hd != fp_alloc * (full.hd + 4):
+            raise AssertionError(f"int8 KV bytes {q_alloc} vs bf16 "
+                                 f"{fp_alloc}: not (hd + 4) / (2 hd)")
+        if tuple(lx.shape) != (2, full.vocab) or not (
+                torch.isfinite(lx).all() and torch.isfinite(ls).all()):
+            raise AssertionError("int8 logits not finite / bad shape")
 
     # -- 6. scaled-down fp32: backends token-identical -----------------------
     def p_small():
@@ -418,6 +625,67 @@ def main(argv=None) -> int:
         if distinct < 4 * len(reqs):
             raise AssertionError(f"degenerate greedy output: {distinct} "
                                  f"distinct tokens over {len(reqs)} requests")
+
+    # -- 6b. scaled-down fp32 int8: backends token-identical -----------------
+    def p_quant_small():
+        base = CONFIGS.get("qwen2_0_5b").scaled_down()
+        qbase = dataclasses.replace(base, quant_serving=True)
+        pol = QuantPolicy(min_size=0)    # every projection (small widths)
+        params = tree_map(lambda _p, a: a * 5.0, N.init(base, args.seed, dev))
+        rng = np.random.default_rng(args.seed + 1)
+        reqs = requests(rng, 8, 4, 64, 16, base.vocab, prefix=32)
+        toks, counts = {}, {}
+        for b in ("xla", "scheduled"):
+            cfg = dataclasses.replace(qbase, gemm_backend=b)
+            eng, res, _, counts[b] = serve(cfg, params, reqs, 4, 160,
+                                           audit=True, quant_policy=pol)
+            if not all(r.status == "ok" for r in res) \
+                    or eng.pool.stats()["quantized"] != 1:
+                raise AssertionError(f"scaled-down int8 {b}: a request "
+                                     f"failed or the pool is not int8")
+            toks[b] = [r.tokens.tolist() for r in res]
+        _eng, res, _, _ = serve(base, params, reqs, 4, 160, audit=True)
+        fp = [r.tokens.tolist() for r in res]
+        total = sum(len(t) for t in fp)
+        agree_x5 = sum(x == y for tq, tf in zip(toks["xla"], fp)
+                       for x, y in zip(tq, tf)) / total
+        same = toks["xla"] == toks["scheduled"]
+        distinct = len({t for seq in toks["xla"] for t in seq})
+        # the reference's own agreement gate (tests/test_quant_serving.py:
+        # init-scale weights, 2 slots, max_len 64, 4 requests sharing an
+        # 8-token prefix, 4 new tokens), held at its geometry
+        p1 = N.init(base, args.seed, dev)
+        rng1 = np.random.default_rng(0)
+        pre = rng1.integers(3, base.vocab, 8).astype(np.int32)
+        reqs1 = [Request(i, np.concatenate(
+            [pre, rng1.integers(3, base.vocab, 4 + i).astype(np.int32)]),
+            4, eos=-1) for i in range(4)]
+        _eng, r_fp, _, _ = serve(base, p1, reqs1, 2, 64, audit=True)
+        _eng, r_q, _, _ = serve(qbase, p1, reqs1, 2, 64, audit=True,
+                                quant_policy=pol)
+        n1 = sum(len(r.tokens) for r in r_fp)
+        agree_ref = sum(int(x == y) for a, b in zip(r_fp, r_q)
+                        for x, y in zip(a.tokens.tolist(),
+                                        b.tokens.tolist())) / n1
+        rep["quant_small"] = {"weights_scale": 5.0, "identical": same,
+                              "distinct_tokens": distinct,
+                              "agreement_vs_fp_x5": agree_x5,
+                              "agreement_vs_fp_reference_gate": agree_ref,
+                              "launches": counts}
+        print(f"scaled-down fp32 int8, weights x5: greedy tokens identical "
+              f"across backends: {same} ({distinct} distinct tokens); "
+              f"agreement with the fp engine {agree_x5:.3f} (x5, not "
+              f"gated), {agree_ref:.3f} at the reference's gate geometry "
+              f"(>= 0.99)")
+        if not same:
+            raise AssertionError("scaled-down int8 tokens differ between "
+                                 "the xla and scheduled backends")
+        if distinct < 32:
+            raise AssertionError(f"degenerate greedy output: {distinct} "
+                                 f"distinct tokens")
+        if agree_ref < 0.99:
+            raise AssertionError(f"int8 vs fp agreement {agree_ref} < 0.99 "
+                                 f"at the reference's gate geometry")
 
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
@@ -490,16 +758,86 @@ def main(argv=None) -> int:
         timing["mpgemm"] = dict(rows[-1], shape="head (8, 151936, 896) bf16 "
                                 "-> fp32", library="torch.matmul (bf16)")
 
+        # K1-int8: the same decode with int8 pools and fp32 scales; no
+        # PyTorch call takes int8 KV with scales (library: none), SDPA over
+        # pre-dequantized bf16 KV is given as context
+        k8, v8, ks, vs = int8_kv(k.shape, 3)
+        qkw = dict(scale=0.125, k_scale=ks, v_scale=vs)
+        kern = time_ms(lambda: PA.paged_decode(q, k8, v8, table, lens, **qkw),
+                       200, flush)
+        plain = time_ms(lambda: PA.gather_fallback(q, k8, v8, table, lens,
+                                                   **qkw), 50, flush)
+        nbytes = 2 * 2 * q.numel() + 2 * B * T * KV * (hd + 4) \
+            + 4 * (table.numel() + B)
+        b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * T * hd, "bfloat16")
+        timing["paged_decode_int8"] = {
+            "shape": f"B={B} KV={KV} G={G} hd={hd} bs={bs} len={T} bf16 q, "
+                     f"int8 KV", "ms": kern, "plain_ms": plain,
+            "library_ms": None, "library": "none (no PyTorch call takes "
+                                           "int8 KV with scales)",
+            "context_ms": timing["paged_decode"]["library_ms"],
+            "context": "SDPA over pre-dequantized bf16 KV (the K1 row)",
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"K1-int8 {timing['paged_decode_int8']['shape']}: kernel "
+              f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, bound "
+              f"{b_ms*1e3:.2f} us ({b_by})")
+
+        # K3: every int8 projection shape of the path, bf16 x
+        lib_fn = getattr(torch, "_weight_int8pack_mm", None)
+        rows = []
+        for M, N_, K_ in k3_shapes:
+            x, w8, sc = quant_inputs(M, N_, K_, torch.bfloat16, 11)
+            kern = time_ms(lambda: QM.quant_matmul(x, w8, sc), 100, flush)
+            plain = time_ms(lambda: QM.quant_matmul_ref(x, w8, sc), 25,
+                            flush)
+            lib, lib_name = None, "none"
+            if lib_fn is not None:
+                # one call taking the int8 weight and a bf16 activation
+                wt, sb = w8.t().contiguous(), sc.to(torch.bfloat16)
+                try:
+                    got = lib_fn(x, wt, sb).float()
+                    want = QM.quant_matmul_ref(x, w8, sc)
+                    if ((got - want).abs() / (1 + want.abs())).max() < 2e-2:
+                        lib = time_ms(lambda: lib_fn(x, wt, sb), 100, flush)
+                        lib_name = "torch._weight_int8pack_mm"
+                    else:
+                        lib_name = "none (_weight_int8pack_mm disagrees)"
+                except (RuntimeError, NotImplementedError) as e:
+                    lib_name = f"none (_weight_int8pack_mm: {str(e)[:80]})"
+            wd = (w8.to(torch.bfloat16) * sc.to(torch.bfloat16)).contiguous()
+            ctx = time_ms(lambda: torch.mm(x, wd), 100, flush)
+            nbytes = 2 * M * K_ + K_ * N_ + 4 * N_ + 4 * M * N_
+            b_ms, b_by = bound_ms(nbytes, 2 * M * N_ * K_, "bfloat16")
+            rows.append({"M": M, "N": N_, "K": K_,
+                         "tile": list(QM.TILES[QM.tile_for(M, N_)]),
+                         "ms": kern, "plain_ms": plain, "library_ms": lib,
+                         "library": lib_name, "context_ms": ctx,
+                         "context": "torch.mm over a pre-dequantized bf16 "
+                                    "weight",
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"K3 bf16 ({M}, {N_}, {K_}) tile "
+                  f"{rows[-1]['tile'][0]}x{rows[-1]['tile'][1]}: kernel "
+                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, library "
+                  f"{'-' if lib is None else f'{lib*1e3:.1f} us'} "
+                  f"({lib_name}), torch.mm dequantized {ctx*1e3:.1f} us, "
+                  f"bound {b_ms*1e3:.2f} us ({b_by})")
+        timing["quant_matmul_shapes"] = rows
+        timing["quant_matmul"] = dict(rows[3], shape="decode down projection "
+                                      "(8, 896, 4864) bf16 x -> fp32")
+
     # -- 8. where one decode step's time goes ------------------------------
     def p_profile():
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        params = params_full()
         out = {}
-        for b in ("xla", "scheduled"):
-            cfg = dataclasses.replace(full, gemm_backend=b)
+        for b, model in (("xla", full), ("scheduled", full),
+                         ("xla", full_quant), ("scheduled", full_quant)):
+            cfg = dataclasses.replace(model, gemm_backend=b)
+            params = params_quant() if model.quant_serving else params_full()
             eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
                                    device=dev)
+            if model.quant_serving:
+                b = f"int8 {b}"
             for r in requests(np.random.default_rng(7), 8, 30, 31, 64,
                               full.vocab):
                 eng.submit(r)
@@ -533,24 +871,35 @@ def main(argv=None) -> int:
                       f"{k} {t:.2f} ms x{c}" for k, t, c in out[b]["top"]))
         rep["step_profile"] = out
 
-    for name, fn in (("device", p_device), ("build", p_build),
-                     ("k1_vs_plain", p_k1), ("k2_vs_plain", p_k2),
-                     ("main_path", p_main), ("scaled_down_fp32", p_small),
-                     ("timing", p_timing), ("step_profile", p_profile)):
+    phases = (("device", p_device), ("build", p_build),
+              ("k1_vs_plain", p_k1), ("k1_int8_vs_plain", p_k1_int8),
+              ("k2_vs_plain", p_k2), ("k3_vs_plain", p_k3),
+              ("main_path", p_main), ("quant_main_path", p_quant_main),
+              ("scaled_down_fp32", p_small),
+              ("quant_scaled_down_fp32", p_quant_small),
+              ("timing", p_timing), ("step_profile", p_profile))
+    only = set(args.phases.split(",")) if args.phases else None
+    for name, fn in phases:
         if name != "device" and "build" in sm.failures:
             break
-        sm.phase(name, fn)
+        if only is None or name in only or name in ("device", "build"):
+            sm.phase(name, fn)
+    if only is not None:
+        sm.failures.append("not every phase ran (--phases)")
 
-    # launches: the scheduled run, the one that runs every kernel of the
-    # path (each backend's counts are in the report)
-    sched_counts = main_launches.get("scheduled", {})
+    # launches: each kernel's count in the scheduled run of its main path
+    # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3 (each
+    # backend's counts are in the report)
     kernels = []
-    for name, src, repl in (("paged_decode", K1_SOURCE, K1_REPLACES),
-                            ("mpgemm", K2_SOURCE, K2_REPLACES)):
+    for name, src, repl, counts in (
+            ("paged_decode", K1_SOURCE, K1_REPLACES, main_launches),
+            ("paged_decode_int8", K1_SOURCE, K1I_REPLACES, quant_launches),
+            ("mpgemm", K2_SOURCE, K2_REPLACES, main_launches),
+            ("quant_matmul", K3_SOURCE, K3_REPLACES, quant_launches)):
         t = timing.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl,
-                        "launches": sched_counts.get(name, 0),
+                        "launches": counts.get("scheduled", {}).get(name, 0),
                         "max_abs_err": sm.kerr[name],
                         "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
                         "bound_ms": t.get("bound_ms"),

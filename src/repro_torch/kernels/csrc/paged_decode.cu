@@ -1,18 +1,23 @@
-// Paged-decode GQA attention for Hopper (sm_90a).
+// Paged-decode GQA attention for Hopper (sm_90a), fp and int8 KV pools.
 //
 // Replaces the Pallas kernel repro/kernels/paged_attention.py:
-// paged_decode_kernel (body _paged_decode_body), the fp variant.
+// paged_decode_kernel (body _paged_decode_body), both variants: K1 with
+// fp pools of the query's type, and K1-int8 (quantized=True) with int8
+// pools and fp32 per-(position, KV head) scale sidecars.
 //
 // What it computes: for each slot b and KV head h, the G query rows of
 // that head attend over the slot's KV, which lives in pool blocks named by
 // the slot's block-table row: s = (q * scale) . k^T, an optional tanh
 // softcap, a mask pos < len (and (len-1) - pos < window), an online
 // softmax (m, l, acc) in fp32 across blocks, and out = acc / max(l, 1e-30).
+// With int8 pools each K/V element is dequantized in fp32 as it is
+// fetched, float(int8) * scale[position, head], as the Pallas kernel does.
 //
 // What bounds it on this card: bytes.  Each CTA reads its slot's K and V
-// once (len x hd x 2 values per KV head) and does O(G) flops per byte, far
-// below the ~295 flop/byte ridge of the H100.  At B=8 and 512-token
-// contexts one layer's K and V are 2 MiB, 0.63 us at 3.35 TB/s; this
+// once (len x hd x 2 values per KV head, plus two fp32 scales a position
+// for int8) and does O(G) flops per byte, far below the ~295 flop/byte
+// ridge of the H100.  At B=8 and 512-token contexts one layer's bf16 K
+// and V are 2 MiB, 0.63 us at 3.35 TB/s (int8 with scales: 1.1 MiB); this
 // kernel is far from that bound, held by the latency of its serial block
 // loop (below).
 //
@@ -22,16 +27,20 @@
 // the ceil(len / bs) blocks that hold valid positions (and skips blocks
 // wholly outside the window), so table entries past len -- the NULL block
 // 0 among them -- are never read.  Each K/V block (bs x hd) is staged in
-// shared memory as fp32; scores, the softmax state and the accumulator
-// stay in shared memory in fp32.  A row with len == 0 reads nothing and
-// writes zeros.  The block loop is latency-bound: at the decode shape
-// B x KV = 16 CTAs cannot fill the 132 SMs and every block costs four
-// barriers (issuing the staging loads in batches measured slower on an
-// H100, so they stay one per iteration).  Simple and correct first: a
-// split-KV grid with more CTAs than B x KV is later work.
+// shared memory as fp32 (int8 dequantized on the way, so the fp32 tile
+// never exists in device memory); scores, the softmax state and the
+// accumulator stay in shared memory in fp32.  A row with len == 0 reads
+// nothing and writes zeros.  The block loop is latency-bound: at the
+// decode shape B x KV = 16 CTAs cannot fill the 132 SMs and every block
+// costs four barriers (issuing the staging loads in batches measured
+// slower on an H100, so they stay one per iteration).  Simple and correct
+// first: a split-KV grid with more CTAs than B x KV is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +52,9 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -50,15 +62,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// q (B, KV, G, hd); pools (nb, bs, KV, hd|hdv); table (B, nbs); lengths (B,);
+// q (B, KV, G, hd); pools (nb, bs, KV, hd|hdv) in KVT (T, or int8 with
+// scales (nb, bs, KV) fp32); table (B, nbs); lengths (B,);
 // out (B, KV, G, hdv).  Grid (KV, B), kThreads threads.
-template <typename T>
+template <typename T, typename KVT>
 __global__ void __launch_bounds__(kThreads)
-paged_decode(const T* __restrict__ q, const T* __restrict__ k_pool,
-             const T* __restrict__ v_pool, const int* __restrict__ table,
+paged_decode(const T* __restrict__ q, const KVT* __restrict__ k_pool,
+             const KVT* __restrict__ v_pool,
+             const float* __restrict__ k_scale,
+             const float* __restrict__ v_scale, const int* __restrict__ table,
              const int* __restrict__ lengths, T* __restrict__ out, int KV,
              int G, int hd, int hdv, int bs, int nbs, float scale, int window,
              float softcap) {
+  constexpr bool kQuant = std::is_same<KVT, int8_t>::value;
   extern __shared__ float smem[];
   float* qs = smem;              // G * hd, pre-scaled
   float* ks = qs + G * hd;       // bs * hd
@@ -93,11 +109,17 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int base = j * bs;
     for (int i = tid; i < bs * hd; i += kThreads) {
       const int t = i / hd, d = i - t * hd;
-      ks[i] = to_f(k_pool[((blk * bs + t) * KV + h) * hd + d]);
+      const long row = (blk * bs + t) * KV + h;
+      float kv = to_f(k_pool[row * hd + d]);
+      if constexpr (kQuant) kv *= k_scale[row];
+      ks[i] = kv;
     }
     for (int i = tid; i < bs * hdv; i += kThreads) {
       const int t = i / hdv, d = i - t * hdv;
-      vs[i] = to_f(v_pool[((blk * bs + t) * KV + h) * hdv + d]);
+      const long row = (blk * bs + t) * KV + h;
+      float vv = to_f(v_pool[row * hdv + d]);
+      if constexpr (kQuant) vv *= v_scale[row];
+      vs[i] = vv;
     }
     __syncthreads();
 
@@ -152,34 +174,56 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
+template <typename T, typename KVT>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const float* k_scale, const float* v_scale, const int* table,
+           const int* lengths, void* out, int B, int KV, int G, int hd,
+           int hdv, int bs, int nbs, float scale, int window, float softcap,
+           cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * ((size_t)G * hd + (size_t)bs * hd + (size_t)bs * hdv +
+                       (size_t)G * bs + (size_t)G * hdv + 3 * (size_t)G);
+  const dim3 grid(KV, B);
+  paged_decode<T, KVT><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const KVT*>(k_pool),
+      static_cast<const KVT*>(v_pool), k_scale, v_scale, table, lengths,
+      static_cast<T*>(out), KV, G, hd, hdv, bs, nbs, scale, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the CUDA error code of the
-// launch (0 = launched).
+// K1, fp pools of q's type.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// the CUDA error code of the launch (0 = launched).
 extern "C" int paged_decode_launch(int dtype, const void* q,
                                    const void* k_pool, const void* v_pool,
                                    const int* table, const int* lengths,
                                    void* out, int B, int KV, int G, int hd,
                                    int hdv, int bs, int nbs, float scale,
                                    int window, float softcap, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)G * hd + (size_t)bs * hd + (size_t)bs * hdv +
-                       (size_t)G * bs + (size_t)G * hdv + 3 * (size_t)G);
-  const dim3 grid(KV, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    paged_decode<float><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pool),
-        static_cast<const float*>(v_pool), table, lengths,
-        static_cast<float*>(out), KV, G, hd, hdv, bs, nbs, scale, window,
-        softcap);
-  } else {
-    paged_decode<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k_pool),
-        static_cast<const __nv_bfloat16*>(v_pool), table, lengths,
-        static_cast<__nv_bfloat16*>(out), KV, G, hd, hdv, bs, nbs, scale,
-        window, softcap);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, table,
+                                lengths, out, B, KV, G, hd, hdv, bs, nbs,
+                                scale, window, softcap, st);
+  return launch<__nv_bfloat16, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, table, lengths, out, B, KV, G, hd,
+      hdv, bs, nbs, scale, window, softcap, st);
+}
+
+// K1-int8: int8 pools with fp32 scales (nb, bs, KV); q and out in dtype
+// (0 = float32, 1 = bfloat16).  Returns the CUDA error code of the launch.
+extern "C" int paged_decode_int8_launch(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale, const int* table,
+    const int* lengths, void* out, int B, int KV, int G, int hd, int hdv,
+    int bs, int nbs, float scale, int window, float softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_pool, v_pool, k_scale, v_scale, table,
+                                 lengths, out, B, KV, G, hd, hdv, bs, nbs,
+                                 scale, window, softcap, st);
+  return launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, k_scale, v_scale,
+                                       table, lengths, out, B, KV, G, hd, hdv,
+                                       bs, nbs, scale, window, softcap, st);
 }

@@ -1,4 +1,5 @@
-"""The GEMM execution layer: schedule-driven ``matmul`` and ``GemmBackend``.
+"""The GEMM execution layer: schedule-driven ``matmul``, ``quant_matmul``
+and ``GemmBackend``.
 
 ``matmul`` consults a :class:`~repro_torch.core.scheduler.ScheduleCache`
 (the paper-§5 exploration, memoized per (M, N, K, precision)), applies the
@@ -7,7 +8,8 @@ for that dataflow (``core.tiling``), and records what executed -- the
 effective fold and dataflow -- with ``note_applied``.
 
 :class:`GemmBackend` routes model projections (``models.layers.dense``
-and the LM head) through ``matmul`` when ``ModelConfig.gemm_backend ==
+and the LM head) through ``matmul`` -- and int8 QuantTensor projections
+through ``quant_matmul`` (K3) -- when ``ModelConfig.gemm_backend ==
 "scheduled"``; ``backend_for(cfg)`` shares one backend, and so one
 schedule store, per config.
 """
@@ -24,6 +26,8 @@ from repro_torch.core.scheduler import ScheduleCache
 from repro_torch.core.tiling import FOLD_GRAIN, BlockConfig, \
     choose_block_config
 from repro_torch.kernels import mpgemm as _mp
+from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.quant.policy import quantize_tensor
 
 
 @functools.lru_cache(maxsize=4096)
@@ -89,6 +93,35 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
+def quantize_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8: w (K, N) -> (w_q int8 (K, N),
+    scale fp32 (N,)), by ``quant.policy.quantize_tensor``."""
+    qt = quantize_tensor(w)
+    return qt.q, qt.scale
+
+
+def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                 *, out_dtype: torch.dtype = torch.float32,
+                 schedule: ScheduleCache | None = None) -> torch.Tensor:
+    """x (M, K) @ dequant(w_q (K, N), scale (N,)) -> (M, N) through K3.
+
+    With ``schedule`` the shape is resolved under INT8 (GTA's native PE
+    width) and, after the launch, the application is logged as it
+    executed: K3 is an OS pipeline with the dequant at the accumulator
+    flush, so the effective dataflow is OS and the fold 1 whatever the
+    modeled winner (the reference's record)."""
+    M, K = x.shape
+    N = w_q.shape[1]
+    choice = None
+    if schedule is not None:
+        choice = schedule.resolve(M, N, K, "INT8")
+    out = _qm.quant_matmul(x.contiguous(), w_q, scale)
+    if schedule is not None:
+        schedule.note_applied(M, N, K, "INT8", choice, effective_k_fold=1,
+                              effective_dataflow=Dataflow.OS)
+    return out if out_dtype == torch.float32 else out.to(out_dtype)
+
+
 class GemmBackend:
     """Routes model projections through the scheduled mpgemm kernels; its
     only state is the :class:`ScheduleCache`."""
@@ -101,13 +134,20 @@ class GemmBackend:
         """(M, K) @ (K, N) through the scheduled kernel."""
         return matmul(x2, w, out_dtype=out_dtype, schedule=self.schedule)
 
-    def dense(self, x: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor | None = None) -> torch.Tensor:
+    def dense(self, x: torch.Tensor, w, b: torch.Tensor | None = None
+              ) -> torch.Tensor:
         """The scheduled ``layers.dense``: leading dims collapse to one
-        (B*S, K) GEMM emitted in the compute dtype, the bias is added in
-        fp32, and the result returns in x.dtype."""
+        (B*S, K) GEMM, the bias is added in fp32, and the result returns
+        in x.dtype.  A float weight's product is emitted in the compute
+        dtype (mpgemm); a QuantTensor's in fp32, scale applied (K3), so a
+        bf16 model rounds once, at the final cast."""
         lead, K = x.shape[:-1], x.shape[-1]
-        out = self.matmul(x.reshape(-1, K), w.to(x.dtype), out_dtype=x.dtype)
+        if hasattr(w, "q") and hasattr(w, "scale"):     # QuantTensor
+            out = quant_matmul(x.reshape(-1, K), w.q, w.scale,
+                               schedule=self.schedule)
+        else:
+            out = self.matmul(x.reshape(-1, K), w.to(x.dtype),
+                              out_dtype=x.dtype)
         if b is not None:
             out = out.float() + b.float()
         return out.to(x.dtype).reshape(*lead, out.shape[-1])

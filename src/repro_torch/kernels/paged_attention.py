@@ -17,6 +17,14 @@ Two implementations, one contract:
     row's blocks into a contiguous view and run one masked softmax.  It is
     the kernel's oracle and the CPU path.
 
+Int8 pools (the quantized KV of ``cfg.quant_kv``) come with fp32
+``k_scale``/``v_scale`` sidecars (num_blocks, block_size, KV), one scale
+per written position and KV head; both implementations dequantize in
+fp32, ``float(int8) * scale``, as the reference's Pallas kernel does (its
+gather fallback dequantizes through q.dtype instead, which differs in
+bf16).  The int8 variant (K1-int8) counts its launches apart from the fp
+one.
+
 A row of length 0 attends over nothing and yields zeros in both (the
 reference's Pallas kernel does the same; its gather fallback returns the
 mean of the gathered V instead, see ROADMAP Queue 3).
@@ -33,13 +41,18 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-#: launches of the CUDA kernel (reset before a run, read after it)
+#: launches of the CUDA kernel with fp pools, K1 (reset before a run)
 launches = _build.LaunchCounter()
+#: launches of the CUDA kernel with int8 pools, K1-int8
+launches_int8 = _build.LaunchCounter()
 
-_SIGNATURES = {"paged_decode_launch": (
-    [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-    ctypes.c_int)}
+_TAIL = ([ctypes.c_int] * 7
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_SIGNATURES = {
+    "paged_decode_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 6 + _TAIL,
+                            ctypes.c_int),
+    "paged_decode_int8_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                                 + _TAIL, ctypes.c_int)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: shared memory the kernel may use without an opt-in (bytes)
 _SMEM_LIMIT = 48 * 1024
@@ -63,13 +76,19 @@ def gather_fallback(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_table: torch.Tensor,
                     lengths: torch.Tensor, *, scale: float,
                     window: int | None = None,
-                    logit_cap: float | None = None) -> torch.Tensor:
+                    logit_cap: float | None = None,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the kernel: q (B, KV, G, hd); pools (nb, bs, KV,
-    hd); block_table (B, nbs) int32; lengths (B,) int32 -> (B, KV, G, hd)
-    in q.dtype, computed in fp32."""
+    hd), int8 with ``k_scale``/``v_scale`` (nb, bs, KV); block_table
+    (B, nbs) int32; lengths (B,) int32 -> (B, KV, G, hd) in q.dtype,
+    computed (and dequantized) in fp32."""
     nbs, bs = block_table.shape[1], k_pool.shape[1]
     k = gather_pool_blocks(k_pool, block_table).float()
     v = gather_pool_blocks(v_pool, block_table).float()
+    if k_scale is not None:
+        k = k * gather_pool_blocks(k_scale, block_table).float()[..., None]
+        v = v * gather_pool_blocks(v_scale, block_table).float()[..., None]
     s = torch.einsum("bkgd,btkd->bkgt", q.float() * scale, k)
     s = _softcap(s, logit_cap)
     kvpos = torch.arange(nbs * bs, device=q.device)
@@ -81,7 +100,8 @@ def gather_fallback(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("bkgt,btkd->bkgd", p, v).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, block_table, lengths) -> None:
+def _check(q, k_pool, v_pool, block_table, lengths, k_scale=None,
+           v_scale=None) -> None:
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4:
         raise ValueError("q must be (B, KV, G, hd) and the pools "
                          "(num_blocks, block_size, KV, hd)")
@@ -90,17 +110,29 @@ def _check(q, k_pool, v_pool, block_table, lengths) -> None:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged decode takes float32 or bfloat16 q and "
-                        f"pools of the same type, got {q.dtype}, "
-                        f"{k_pool.dtype}, {v_pool.dtype}")
+    quant = k_pool.dtype == torch.int8
+    pool_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != pool_dtype \
+            or v_pool.dtype != pool_dtype:
+        raise TypeError(f"paged decode takes float32 or bfloat16 q with "
+                        f"pools of the same type or int8 pools, got "
+                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise TypeError("int8 pools need k_scale and v_scale, and scales "
+                        "go only with int8 pools")
+    if quant:
+        for sc in (k_scale, v_scale):
+            if sc.shape != k_pool.shape[:3] or sc.dtype != torch.float32:
+                raise ValueError(f"scales must be float32 "
+                                 f"{tuple(k_pool.shape[:3])}, got "
+                                 f"{sc.dtype} {tuple(sc.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or lengths.shape != (B,):
         raise ValueError("block_table must be (B, nbs) and lengths (B,)")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_table and lengths must be int32")
-    devs = {t.device for t in (q, k_pool, v_pool, block_table, lengths)}
+    devs = {t.device for t in (q, k_pool, v_pool, block_table, lengths,
+                               k_scale, v_scale) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"paged decode operands on several devices: {devs}")
 
@@ -108,21 +140,28 @@ def _check(q, k_pool, v_pool, block_table, lengths) -> None:
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_table: torch.Tensor, lengths: torch.Tensor, *,
                  scale: float, window: int | None = None,
-                 logit_cap: float | None = None) -> torch.Tensor:
-    """Paged-decode attention: the CUDA kernel on a CUDA tensor, the plain
-    version on CPU tensors.  Same contract as :func:`gather_fallback`."""
-    _check(q, k_pool, v_pool, block_table, lengths)
+                 logit_cap: float | None = None,
+                 k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Paged-decode attention: the CUDA kernel on a CUDA tensor (K1, or
+    K1-int8 for int8 pools with scales), the plain version on CPU
+    tensors.  Same contract as :func:`gather_fallback`."""
+    _check(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale)
     if q.device.type == "cpu":
         return gather_fallback(q, k_pool, v_pool, block_table, lengths,
                                scale=scale, window=window,
-                               logit_cap=logit_cap)
+                               logit_cap=logit_cap, k_scale=k_scale,
+                               v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged decode runs on cuda or cpu, not {q.device}")
-    tensors = (q, k_pool, v_pool, block_table, lengths)
+    quant = k_scale is not None
+    tensors = (q, k_pool, v_pool, block_table, lengths) \
+        + ((k_scale, v_scale) if quant else ())
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged decode needs contiguous operands")
     B, KV, G, hd = q.shape
     bs, hdv, nbs = k_pool.shape[1], v_pool.shape[3], block_table.shape[1]
+    # all fp32: int8 pools are dequantized as they are staged
     smem = 4 * (G * hd + bs * hd + bs * hdv + G * bs + G * hdv + 3 * G)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"paged decode tile needs {smem} B of shared "
@@ -131,15 +170,23 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if B == 0:
         return out
     lib = _build.load("paged_decode", _SIGNATURES)
-    rc = lib.paged_decode_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, KV, G, hd, hdv, bs, nbs, float(scale),
-        -1 if window is None else int(window),
-        0.0 if logit_cap is None else float(logit_cap),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch(rc, "paged_decode")
-    launches.count += 1
+    tail = (block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+            KV, G, hd, hdv, bs, nbs, float(scale),
+            -1 if window is None else int(window),
+            0.0 if logit_cap is None else float(logit_cap),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        rc = lib.paged_decode_int8_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+        _build.check_launch(rc, "paged_decode_int8")
+        launches_int8.count += 1
+    else:
+        rc = lib.paged_decode_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), *tail)
+        _build.check_launch(rc, "paged_decode")
+        launches.count += 1
     return out
 
 
@@ -148,6 +195,8 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      lengths: torch.Tensor, *, scale: float,
                      window: int | None = None,
                      logit_cap: float | None = None,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None,
                      device: str | torch.device | None = None
                      ) -> torch.Tensor:
     """Public paged-decode entry point: runs on ``device`` (CUDA unless the
@@ -156,7 +205,8 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != dev.type:
         raise ValueError(f"operands on {q.device}, expected {dev}")
     return paged_decode(q, k_pool, v_pool, block_table, lengths, scale=scale,
-                        window=window, logit_cap=logit_cap)
+                        window=window, logit_cap=logit_cap, k_scale=k_scale,
+                        v_scale=v_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ a report of throughput, time to first token (TTFT), time per output token
     python -m repro_torch.launch.serve --arch qwen2_0_5b
     python -m repro_torch.launch.serve --arch qwen2_0_5b --scaled-down \\
         --gemm-backend scheduled --device cpu
+    python -m repro_torch.launch.serve --arch qwen2_0_5b --quant
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 """
@@ -22,6 +23,7 @@ import torch
 from repro_torch import configs as CONFIGS
 from repro_torch.device import resolve_device
 from repro_torch.models import network as N
+from repro_torch.quant.policy import QuantPolicy
 from repro_torch.serving.engine import ContinuousEngine, Request
 
 
@@ -38,6 +40,10 @@ def main(argv=None) -> dict:
                     help="scheduled = projections and the LM head through "
                          "the mpgemm kernels under the paper-§5 schedule "
                          "cache; xla = torch.matmul (default)")
+    ap.add_argument("--quant", action="store_true",
+                    help="int8 serving: QuantTensor projection weights "
+                         "(quant_matmul under --gemm-backend scheduled) "
+                         "and int8 paged KV blocks with scale sidecars")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--requests", type=int, default=8)
@@ -53,6 +59,14 @@ def main(argv=None) -> dict:
     if args.scaled_down:
         cfg = cfg.scaled_down()
     cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend).validate()
+    quant_policy = None
+    if args.quant:
+        cfg = dataclasses.replace(cfg, quant_serving=True,
+                                  name=cfg.name + "+int8").validate()
+        # scaled-down projections sit below the default 65536-element
+        # floor, so nothing would be quantized there
+        quant_policy = (QuantPolicy(min_size=0) if args.scaled_down
+                        else QuantPolicy())
     params = N.init(cfg, args.seed, dev)
 
     rng = np.random.default_rng(args.seed)
@@ -64,7 +78,8 @@ def main(argv=None) -> dict:
                         args.max_new // 2, args.max_new + 1))), eos=-1)
             for i in range(args.requests)]
     eng = ContinuousEngine(cfg, params, slots=args.slots,
-                           max_len=args.max_len, device=dev)
+                           max_len=args.max_len, quant_policy=quant_policy,
+                           device=dev)
     eng.schedule.reset()        # count only the run, not construction
     t0 = time.perf_counter()
     results = eng.run(reqs)
@@ -87,9 +102,13 @@ def main(argv=None) -> dict:
               "ttft_p95_ms": _pct(ttft, 95) * 1e3,
               "tpot_p50_ms": _pct(tpot, 50) * 1e3,
               "schedule_hits": st["hits"], "schedule_misses": st["misses"],
+              "quant": bool(args.quant), "kv_quantized": ps["quantized"],
               "pool_peak_blocks": ps["peak_used"],
               "pool_blocks": ps["num_blocks"],
               "shared_token_hits": ps["shared_token_hits"]}
+    if args.quant:
+        kv_kind = "int8 KV blocks" if cfg.quant_kv else "fp KV blocks"
+        print(f"[serve] int8 serving: QuantTensor weights + {kv_kind}")
     print(f"[serve:{cfg.name} {args.gemm_backend} on {dev}] "
           f"{len(results)} requests, {toks} tokens in {wall:.2f}s "
           f"({report['tok_per_s']:.1f} tok/s)  TTFT p50 "

@@ -9,7 +9,11 @@ blocks and run the blockwise online-softmax ``_flash`` in plain PyTorch
 (the reference's is plain JAX as well).
 
 The KV pools are updated IN PLACE: ``_paged_write`` scatters into the
-pool tensor it is given and returns it.
+pool tensor it is given and returns it.  Under ``cfg.quant_kv`` the pools
+are int8 with fp32 per-(position, KV head) scale sidecars ``k_scale`` /
+``v_scale``: ``_paged_write_quant`` quantizes each written row on the
+way in, decode runs the int8 kernel variant, and the prefill gather
+dequantizes through the compute dtype (the reference's rounding).
 """
 
 from __future__ import annotations
@@ -118,6 +122,24 @@ def _paged_write(buf: torch.Tensor, update: torch.Tensor, pos: torch.Tensor,
     return buf
 
 
+def _paged_write_quant(qbuf: torch.Tensor, sbuf: torch.Tensor,
+                       update: torch.Tensor, pos: torch.Tensor,
+                       block_table: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize-on-write into an int8 pool and its scale sidecar, IN
+    PLACE: ``update`` (B, S, KV, hd) is quantized symmetrically along hd,
+    one fp32 scale per written token and KV head (amax / 127; an all-zero
+    row -- padding, writes into the NULL block -- gets 1.0, so it
+    dequantizes to exact zeros).  Bit-identical to the reference."""
+    upf = update.float()
+    amax = upf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(upf / scale[..., None]), -127, 127
+                    ).to(torch.int8)
+    return (_paged_write(qbuf, q, pos, block_table),
+            _paged_write(sbuf, scale, pos, block_table))
+
+
 def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   kind: BlockKind, pos_offset: torch.Tensor, cache: dict,
                   block_table: torch.Tensor,
@@ -145,19 +167,35 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     scale = hd ** -0.5
     adv = S if pos_advance is None else pos_advance
-    ck = _paged_write(cache["k"], k, cache["pos"], block_table)
-    cv = _paged_write(cache["v"], v, cache["pos"], block_table)
     kv_valid = cache["pos"] + adv
-    new_cache = {"k": ck, "v": cv, "pos": kv_valid}
+    if "k_scale" in cache:
+        ck, cks = _paged_write_quant(cache["k"], cache["k_scale"], k,
+                                     cache["pos"], block_table)
+        cv, cvs = _paged_write_quant(cache["v"], cache["v_scale"], v,
+                                     cache["pos"], block_table)
+        new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs,
+                     "pos": kv_valid}
+    else:
+        cks = cvs = None
+        ck = _paged_write(cache["k"], k, cache["pos"], block_table)
+        cv = _paged_write(cache["v"], v, cache["pos"], block_table)
+        new_cache = {"k": ck, "v": cv, "pos": kv_valid}
     if S == 1:
         out = PA.decode_attention(
             q.reshape(B, KV, G, hd), ck, cv, block_table,
             kv_valid.to(torch.int32), scale=scale, window=None,
-            logit_cap=cfg.attn_logit_softcap, device=x.device)
+            logit_cap=cfg.attn_logit_softcap, k_scale=cks, v_scale=cvs,
+            device=x.device)
         return dense(out.reshape(B, 1, H * hd), p["wo"],
                      backend=backend), new_cache
     k_att = PA.gather_pool_blocks(ck, block_table)
     v_att = PA.gather_pool_blocks(cv, block_table)
+    if cks is not None:
+        # dequantize through the compute dtype, as the reference does
+        k_att = k_att.to(x.dtype) * PA.gather_pool_blocks(
+            cks, block_table).to(x.dtype)[..., None]
+        v_att = v_att.to(x.dtype) * PA.gather_pool_blocks(
+            cvs, block_table).to(x.dtype)[..., None]
     out = _flash(q.reshape(B, S, KV, G, hd), k_att, v_att, scale=scale,
                  causal=cfg.causal, window=None, q_offset=pos_offset,
                  kv_valid=kv_valid, logit_cap=cfg.attn_logit_softcap,
@@ -168,8 +206,19 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 def make_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                         dtype: torch.dtype, device: torch.device) -> dict:
-    """Empty per-layer paged pool (no batch dim) plus its cursor leaf."""
+    """Empty per-layer paged pool (no batch dim) plus its cursor leaf;
+    under ``cfg.quant_kv`` int8 pools with fp32 scale sidecars (initialised
+    to 1.0) sharing the (num_blocks, block_size) layout, so block tables
+    and COW copies address them like the payload."""
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+    if cfg.quant_kv:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.ones(shape[:3], dtype=torch.float32,
+                                      device=device),
+                "v_scale": torch.ones(shape[:3], dtype=torch.float32,
+                                      device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}

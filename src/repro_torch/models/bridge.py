@@ -5,7 +5,9 @@ tuples of arrays with the scan-stacked leading layer dim on every block
 leaf; the port keeps that tree, so the bridge is a checked leaf-by-leaf
 copy.  Every leaf the port defines must be present with the defined
 shape, and every leaf of the given tree must be consumed: anything left
-unmapped raises.
+unmapped raises.  A tree the reference has already quantized
+(``repro.quant.serving_quant_params``, its QuantTensor leaves holding
+numpy ``q``/``scale``) crosses as the port's QuantTensors, bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import network as N
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_map
+from repro_torch.quant.policy import QuantTensor
 
 
 def _leaf_paths(tree: Any, path: tuple = ()) -> set[tuple]:
@@ -54,7 +57,18 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
                        f"{sorted(map(str, extra))}")
 
     def convert(path, d):
-        arr = np.array(_lookup(tree, path), dtype=np.float32)
+        leaf = _lookup(tree, path)
+        if hasattr(leaf, "q") and hasattr(leaf, "scale"):   # QuantTensor
+            q = np.asarray(leaf.q)
+            sc = np.asarray(leaf.scale, dtype=np.float32)
+            if q.dtype != np.int8 or q.shape != d.shape \
+                    or sc.shape != d.shape[:-2] + d.shape[-1:]:
+                raise ValueError(f"quantized leaf {path}: q {q.dtype} "
+                                 f"{q.shape}, scale {sc.shape}; port "
+                                 f"expects int8 {d.shape}")
+            return QuantTensor(torch.from_numpy(q.copy()).to(dev),
+                               torch.from_numpy(sc.copy()).to(dev))
+        arr = np.array(leaf, dtype=np.float32)
         if arr.shape != d.shape:
             raise ValueError(f"leaf {path}: reference shape {arr.shape}, "
                              f"port expects {d.shape}")

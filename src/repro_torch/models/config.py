@@ -114,8 +114,20 @@ class ModelConfig:
         return not self.causal
 
     @property
+    def attention_free(self) -> bool:
+        return set(self.pattern) | set(self.tail) <= {BlockKind.MAMBA2}
+
+    @property
     def has_recurrent_state(self) -> bool:
         return BlockKind.MAMBA2 in set(self.pattern) | set(self.tail)
+
+    @property
+    def quant_kv(self) -> bool:
+        """Int8 paged KV blocks with per-position scale sidecars: follows
+        ``quant_serving`` for the plain GQA pool only (an MLA latent cache
+        is already compressed; attention-free stacks have no KV pool)."""
+        return self.quant_serving and self.mla is None \
+            and not self.attention_free
 
     def validate(self) -> ModelConfig:
         pat = max(1, len(self.pattern))

@@ -109,15 +109,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.cat([rot, xp], dim=-1) if rd < d else rot
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+def dense(x: torch.Tensor, w, b: torch.Tensor | None = None,
           *, backend=None) -> torch.Tensor:
     """x (..., K) @ w (K, N): the product is emitted in the compute dtype,
-    the bias is added in fp32, and the result is cast back.  ``backend``
-    (a ``kernels.ops.GemmBackend``) routes the product through the
-    scheduled mpgemm kernels."""
+    the bias is added in fp32, and the result is cast back.  A QuantTensor
+    ``w`` multiplies by its int8 payload cast to the compute dtype and
+    applies the per-channel scale in the compute dtype too (the
+    reference's rounding: a bf16 model rounds the product, then the
+    scaled product).  ``backend`` (a ``kernels.ops.GemmBackend``) routes
+    the product through the scheduled kernels (mpgemm, or quant_matmul
+    for a QuantTensor)."""
     if backend is not None:
         return backend.dense(x, w, b)
-    out = torch.matmul(x, w.to(x.dtype))
+    if hasattr(w, "q") and hasattr(w, "scale"):     # QuantTensor
+        out = torch.matmul(x, w.q.to(x.dtype)) * w.scale.to(x.dtype)
+    else:
+        out = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         out = out.float() + b.float()
     return out.to(x.dtype)
@@ -153,14 +160,21 @@ def embed_apply(p: dict, tokens: torch.Tensor, dtype: torch.dtype
     return p["table"].to(dtype)[tokens.long()]
 
 
-def head_apply(w: torch.Tensor, x: torch.Tensor, cap: float | None = None,
+def head_apply(w, x: torch.Tensor, cap: float | None = None,
                *, backend=None) -> torch.Tensor:
     """Logits: x (B, S, D) @ w (V, D)^T -> fp32 (B, S, V), optional
     softcap.  The products of compute-dtype operands are summed in fp32
     (the reference's ``preferred_element_type=float32``).  ``backend``
     runs the (B*S, V, D) GEMM through the scheduled kernels against the
     transposed table view (no copy).  On the card, low-precision operands
-    give fp32 logits in one call, with no fp32 copy of the (V, D) table."""
+    give fp32 logits in one call, with no fp32 copy of the (V, D) table.
+
+    A QuantTensor head (an untied lm_head under ``serving_quant_params``)
+    is quantized along V, so its scale is per-D and folds into x exactly:
+    ``(x * scale) @ q^T``."""
+    if hasattr(w, "q") and hasattr(w, "scale"):     # QuantTensor head
+        x = x * w.scale.to(x.dtype)
+        w = w.q
     w = w.to(x.dtype)
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)

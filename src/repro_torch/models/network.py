@@ -8,7 +8,9 @@ leaf.  Paged cache trees keep its layout too:
   ``{"groups": ({"k": (L, nb, bs, KV, hd), "v": ..., "pos": (L, slots)},)}``
 
 where k/v are POOL leaves shared by all slots (indexed through the block
-table) and ``pos`` the per-slot write cursors.  The serving functions
+table) and ``pos`` the per-slot write cursors.  Under ``cfg.quant_kv`` k/v
+are int8 and the pool also holds the fp32 scale sidecars ``k_scale`` /
+``v_scale`` (L, nb, bs, KV).  The serving functions
 update the pool tensors IN PLACE and return the tree with new cursors.
 """
 
@@ -29,7 +31,7 @@ from repro_torch.models.layers import (ParamDef, embed_apply, embed_defs,
 
 PyTree = Any
 
-_POOL_KEYS = ("k", "v")
+_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -93,10 +95,11 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     for gi, _kind in enumerate(cfg.pattern):
         stacked, gcache = params["blocks"][gi], caches["groups"][gi]
         new_pos = []
+        pools = [k for k in _POOL_KEYS if k in gcache]
         for li in range(cfg.n_groups_scan):
             p = _layer(stacked, li)
-            cache = {"k": gcache["k"][li], "v": gcache["v"][li],
-                     "pos": gcache["pos"][li]}
+            cache = {k: gcache[k][li] for k in pools}
+            cache["pos"] = gcache["pos"][li]
             h = rms_norm(x, p["ln1"], eps)
             out, nc = A.gqa_attention(p["attn"], h, cfg, kind=BlockKind.ATTN,
                                       pos_offset=pos_offset, cache=cache,
@@ -107,7 +110,7 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
             h = rms_norm(x, p["ln2"], eps)
             x = x + mlp_apply(p["mlp"], h, cfg.act, backend=backend)
             new_pos.append(nc["pos"])
-        groups.append({"k": gcache["k"], "v": gcache["v"],
+        groups.append({**{k: gcache[k] for k in pools},
                        "pos": torch.stack(new_pos)})
     return x, {"groups": tuple(groups)}
 

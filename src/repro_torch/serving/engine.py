@@ -19,6 +19,13 @@ decoding.  The design, as in the reference:
     construction, so the steady state is pure cache hits; with
     ``gemm_backend="scheduled"`` the engine adopts the per-config
     backend's cache, which the model's mpgemm launches consult.
+  * **Quantized serving.**  Under ``cfg.quant_serving`` the weight tree is
+    rewritten to int8 QuantTensors at construction (``quant_policy``; the
+    tied embedding is never quantized) and, where ``cfg.quant_kv``, the
+    KV pool holds int8 blocks with per-position scale sidecars.  Each
+    GEMM shape is also resolved under INT8 and under the precision the
+    §5 explorer picks (``precision_plan``), so a quantized run is pure
+    cache hits too.
 
 The reference's ten jitted programs become plain calls of the
 ``models.network`` serving functions; the pools are updated in place.
@@ -38,13 +45,16 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.precision import precision_for_dtype
+from repro_torch.core.pgemm import PGEMM
+from repro_torch.core.precision import INT8, precision_for_dtype
 from repro_torch.core.scheduler import ScheduleCache
 from repro_torch.device import resolve_device
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import network as N
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.quant.policy import (QuantPolicy, choose_precision,
+                                      serving_quant_params)
 from repro_torch.serving.kv_pool import KVPool, blocks_for
 
 
@@ -95,6 +105,7 @@ class ContinuousEngine:
                  max_len: int = 2048, block_size: int = 16,
                  kv_blocks: int | None = None,
                  prefill_chunk: int | None = None, audit: bool = False,
+                 quant_policy: QuantPolicy | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         if cfg.is_encoder_only:
@@ -104,6 +115,9 @@ class ContinuousEngine:
             raise ValueError(f"params live on {table.device}, the engine "
                              f"runs on {self.device}")
         self.cfg = cfg
+        if cfg.quant_serving:
+            # idempotent: an already-quantized tree passes through
+            params = serving_quant_params(cfg, params, quant_policy)
         self.params = params
         self.slots = slots
         self.max_len = max_len
@@ -117,6 +131,9 @@ class ContinuousEngine:
         self.schedule.bind_metrics(m)
         self._prec = precision_for_dtype(cfg.compute_dtype,
                                          default="FP32").name
+        #: (M, N, K) -> the §5 explorer's precision for that serving GEMM
+        #: (memoized: explored at construction only)
+        self.precision_plan: dict[tuple[int, int, int], str] = {}
 
         self.prefill_chunk = min(prefill_chunk or 32, max_len)
         per_slot = blocks_for(max_len, block_size)
@@ -128,7 +145,8 @@ class ContinuousEngine:
                              f"full-window request ({per_slot} blocks of "
                              f"{block_size})")
         self.pool = KVPool(kv_blocks, block_size, slots=slots,
-                           max_len=max_len, metrics=m)
+                           max_len=max_len, quantized=cfg.quant_kv,
+                           metrics=m)
         self.caches = N.expand_cache_pos(
             N.init_paged_caches(cfg, slots, kv_blocks, block_size,
                                 device=self.device), slots)
@@ -174,6 +192,25 @@ class ContinuousEngine:
                   (head_rows, cfg.vocab, d)]
         for M, Nn, K in shapes:
             self.schedule.resolve(M, Nn, K, self._prec)
+            if cfg.quant_serving:
+                # int8 leaves run ops.quant_matmul, which resolves under
+                # INT8; float leaves and the head stay on the compute
+                # precision
+                if self._prec != "INT8":
+                    self.schedule.resolve(M, Nn, K, "INT8")
+                chosen = self._gemm_precision(M, Nn, K)
+                if chosen not in (self._prec, "INT8"):
+                    self.schedule.resolve(M, Nn, K, chosen)
+
+    def _gemm_precision(self, M: int, N: int, K: int) -> str:
+        """The §5 explorer's precision (``choose_precision``) for one
+        serving GEMM, memoized per shape."""
+        name = self.precision_plan.get((M, N, K))
+        if name is None:
+            name = choose_precision(
+                PGEMM("serve", M=M, N=N, K=K, precision=INT8)).name
+            self.precision_plan[(M, N, K)] = name
+        return name
 
     # -- request API -----------------------------------------------------------
 

@@ -1,8 +1,8 @@
 """Block-paged KV pool: allocator, block tables, prefix sharing, COW.
 
 Host-side bookkeeping (numpy only) of the paged KV cache -- a copy of
-``repro.serving.kv_pool`` without the parts of later slices (quantized
-blocks, lazy growth and rollback for speculation, policy probes).  Device
+``repro.serving.kv_pool`` without the parts of later slices (lazy growth
+and rollback for speculation, policy probes).  Device
 storage keeps every attention layer's K/V as one pool tensor
 ``(num_blocks, block_size, n_kv_heads, head_dim)``; a slot's logical
 sequence is scattered across pool blocks named by its row of
@@ -29,6 +29,13 @@ Invariants:
   * **Eviction**: when a reservation cannot be met, least-recently-used
     cached blocks nobody else maps are evicted; if that still falls short
     the reservation returns None and the engine backs off.
+  * **Quantized blocks** (``quantized=True``, for ``cfg.quant_kv``): the
+    device blocks are int8 with per-position scale sidecars, and
+    ``scale_written[b]`` records which blocks own live dequant state.
+    Mapped, cached and pending blocks must; a freed block must not (a
+    stale flag would let a re-allocation dequantize a previous owner's
+    scales).  COW destinations inherit the source's flag; the flag
+    clears when the ref count reaches 0.
 """
 
 from __future__ import annotations
@@ -90,6 +97,7 @@ class KVPool:
 
     def __init__(self, num_blocks: int, block_size: int, *, slots: int,
                  max_len: int, share_prefixes: bool = True,
+                 quantized: bool = False,
                  metrics: MetricsRegistry | None = None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
@@ -101,6 +109,8 @@ class KVPool:
         self.max_len = max_len
         self.blocks_per_slot = blocks_for(max_len, block_size)
         self.share_prefixes = share_prefixes
+        self.quantized = quantized
+        self.scale_written = np.zeros(num_blocks, bool)
         self._free: collections.deque[int] = collections.deque(
             range(1, num_blocks))
         self.ref = np.zeros(num_blocks, np.int32)
@@ -168,7 +178,18 @@ class KVPool:
         self.ref[bid] -= 1
         if self.ref[bid] == 0:
             assert bid not in self._hash_of, bid
+            # the dequant state dies with the last ref
+            self.scale_written[bid] = False
             self._free.append(bid)
+
+    def _mark_written(self, bids) -> None:
+        """Record live scale sidecars for mapped blocks (quantized pools
+        only: an fp pool's flags stay all False)."""
+        if not self.quantized:
+            return
+        for bid in bids:
+            if bid != NULL_BLOCK:
+                self.scale_written[int(bid)] = True
 
     def _evict_cached(self, need: int) -> None:
         """Unregister LRU prefix blocks nobody else maps until ``need``
@@ -269,6 +290,7 @@ class KVPool:
         self.tables[slot, :len(row)] = row
         self.tables[slot, len(row):] = NULL_BLOCK
         self.n_slot_blocks[slot] = len(row)
+        self._mark_written(row)
         self.shared_token_hits += len(shared) * self.block_size
         self._m_shared.inc(len(shared) * self.block_size)
         self._note_usage()
@@ -314,6 +336,9 @@ class KVPool:
             self.pending_copies.append((bid, fresh))
             self.cow_forks += 1
             self._m_cow.inc()
+            if self.quantized:
+                # the queued copy moves payload and sidecar alike
+                self.scale_written[fresh] = self.scale_written[bid]
             self.tables[slot, j] = fresh
 
     def take_copies(self) -> list[tuple[int, int]]:
@@ -341,6 +366,7 @@ class KVPool:
     def stats(self) -> dict[str, int]:
         return {"num_blocks": self.num_blocks - 1,
                 "block_size": self.block_size,
+                "quantized": int(self.quantized),
                 "used": self.used_blocks,
                 "peak_used": self.peak_used,
                 "cached_prefix_blocks": len(self._prefix),
@@ -357,6 +383,9 @@ class KVPool:
             "slots": int(self.slots),
             "max_len": int(self.max_len),
             "share_prefixes": bool(self.share_prefixes),
+            "quantized": bool(self.quantized),
+            "scale_written": [int(b) for b
+                              in np.flatnonzero(self.scale_written)],
             "free": [int(b) for b in self._free],
             "ref": [int(r) for r in self.ref],
             "tables": self.tables.tolist(),
@@ -370,7 +399,8 @@ class KVPool:
     def audit_violations(self) -> list[str]:
         """Every broken invariant (empty when consistent): ref
         conservation, the free list holding exactly the ref == 0 blocks
-        once each, and pending copies between live blocks."""
+        once each, pending copies between live blocks, and (quantized
+        pools) scale flags on exactly the live blocks."""
         out: list[str] = []
         counts = np.zeros(self.num_blocks, np.int64)
         counts[NULL_BLOCK] += 1
@@ -411,6 +441,18 @@ class KVPool:
             if self.ref[int(dst)] <= 0:
                 out.append(f"pending COW copy writes freed destination "
                            f"block {int(dst)}")
+        if self.quantized:
+            # live blocks own live dequant state, freed blocks own none
+            if self.scale_written[NULL_BLOCK]:
+                out.append("null block marked scale-written")
+            for bid in range(1, self.num_blocks):
+                r, w = int(self.ref[bid]), bool(self.scale_written[bid])
+                if r == 0 and w:
+                    out.append(f"stale scale sidecar: freed block {bid} "
+                               f"still marked written")
+                if r > 0 and int(counts[bid]) > 0 and not w:
+                    out.append(f"block {bid} is live with no scale "
+                               f"sidecar recorded -- dequant state lost")
         return out
 
     def check(self, pending_op: dict | None = None) -> None:

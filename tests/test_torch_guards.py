@@ -93,6 +93,24 @@ def test_kernel_wrappers_never_fall_back():
                   dataflow=Dataflow.IS, bm=16, bn=64, bk=32)
 
 
+def test_quant_kernel_wrappers_never_fall_back():
+    """K3 and K1-int8 likewise: a meta tensor is neither launched nor sent
+    to the plain version."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quant_matmul as QM
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        QM.quant_matmul(torch.zeros(4, 32, device="meta"),
+                        torch.zeros(32, 16, dtype=torch.int8, device="meta"),
+                        torch.zeros(16, device="meta"))
+    pool = torch.zeros(2, 4, 1, 8, dtype=torch.int8, device="meta")
+    scales = torch.zeros(2, 4, 1, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        PA.paged_decode(torch.zeros(1, 1, 1, 8, device="meta"), pool, pool,
+                        torch.ones(1, 1, dtype=torch.int32, device="meta"),
+                        torch.ones(1, dtype=torch.int32, device="meta"),
+                        scale=1.0, k_scale=scales, v_scale=scales)
+
+
 def test_chip_smoke_refuses_without_port(tmp_path):
     """Alone in a directory, chip_smoke.py exits non-zero with no result."""
     (tmp_path / "chip_smoke.py").write_text(

@@ -8,6 +8,8 @@ the file imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances: fp32 results to 1e-4 (the reference's GEMM bound; the kernel
 and the plain version sum in different orders), bf16 outputs to 2e-2
 (one bf16 rounding of values of order 1, 2^-7, plus order effects).
+K3 (quant_matmul) writes fp32 for either input type and is held to
+|err| / (1 + |ref|) <= 1e-4.
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ from repro_torch.core import tiling
 from repro_torch.core.dataflow import Dataflow
 from repro_torch.kernels import mpgemm as TMP
 from repro_torch.kernels import paged_attention as TPA
+from repro_torch.kernels import quant_matmul as TQM
 from repro_torch.models import network as TN
 from repro_torch.serving.engine import ContinuousEngine, Request
 from _torch_port import cuda  # noqa: F401  (fixture)
@@ -60,6 +63,54 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, tol):
                                    atol=tol)
         assert not got[0].any()                       # length-0 row: zeros
     assert TPA.launches.count == before + 2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_decode_int8_kernel_matches_plain(cuda, dtype, tol):
+    q, k, v, table, lens = _decode_inputs(cuda, dtype)
+    gen = torch.Generator().manual_seed(6)
+    k8 = torch.randint(-127, 128, k.shape, generator=gen,
+                       dtype=torch.int8).to(cuda)
+    v8 = torch.randint(-127, 128, v.shape, generator=gen,
+                       dtype=torch.int8).to(cuda)
+    ks = (torch.rand(k.shape[:3], generator=gen) * 0.03).to(cuda)
+    vs = (torch.rand(v.shape[:3], generator=gen) * 0.03).to(cuda)
+    before, before_fp = TPA.launches_int8.count, TPA.launches.count
+    for window, cap in ((None, None), (24, 30.0)):
+        got = TPA.paged_decode(q, k8, v8, table, lens, scale=0.125,
+                               window=window, logit_cap=cap, k_scale=ks,
+                               v_scale=vs)
+        want = TPA.gather_fallback(q, k8, v8, table, lens, scale=0.125,
+                                   window=window, logit_cap=cap, k_scale=ks,
+                                   v_scale=vs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert not got[0].any()                       # length-0 row: zeros
+    assert TPA.launches_int8.count == before + 2
+    assert TPA.launches.count == before_fp            # the fp kernel: idle
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_kernel_matches_plain(cuda, dtype):
+    """Decode and chunk shapes of the path, ragged M, and odd N/K that
+    take the scalar-copy path."""
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(8, 896, 896), (8, 128, 896), (8, 896, 4864), (5, 100, 200),
+              (256, 4864, 896), (37, 1000, 900), (300, 131, 77)]
+    before = TQM.launches.count
+    for M, N, K in shapes:
+        x = (torch.randn(M, K, generator=gen) * K ** -0.5).to(cuda, dtype)
+        w = torch.randint(-127, 128, (K, N), generator=gen,
+                          dtype=torch.int8).to(cuda)
+        sc = (torch.rand(N, generator=gen) * 0.02).to(cuda)
+        got = TQM.quant_matmul(x, w, sc)
+        want = TQM.quant_matmul_ref(x, w, sc)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / (1 + want.abs())).max().item()
+        assert got.dtype == torch.float32 and rel <= 1e-4, (M, N, K, rel)
+    assert TQM.launches.count == before + len(shapes)
 
 
 @pytest.mark.parametrize("df", [Dataflow.OS, Dataflow.WS, Dataflow.IS])
@@ -103,5 +154,35 @@ def test_engine_backends_agree_on_card(cuda):
                                audit=True, device=cuda)
         res = eng.run(reqs)
         assert all(r.status == "ok" and len(r.tokens) == 8 for r in res)
+        tokens[backend] = {r.rid: r.tokens.tolist() for r in res}
+    assert tokens["xla"] == tokens["scheduled"]
+
+
+def test_quant_engine_backends_agree_on_card(cuda):
+    """Quantized scaled-down fp32 (weights x5, every projection int8):
+    greedy tokens identical under both backends, K3 only under
+    scheduled, K1-int8 on every decode step of both."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.quant.policy import QuantPolicy
+    base = dataclasses.replace(TC.get("qwen2_0_5b").scaled_down(),
+                               quant_serving=True)
+    params = tree_map(lambda _p, a: a * 5.0,
+                      TN.init(base, seed=0, device=cuda))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(3, base.vocab, int(rng.integers(5, 60))
+                                    ).astype(np.int32), 8, eos=-1)
+            for i in range(4)]
+    tokens = {}
+    for backend in ("xla", "scheduled"):
+        cfg = dataclasses.replace(base, gemm_backend=backend)
+        eng = ContinuousEngine(cfg, params, slots=2, max_len=128,
+                               audit=True, quant_policy=QuantPolicy(
+                                   min_size=0), device=cuda)
+        TQM.launches.reset()
+        TPA.launches_int8.reset()
+        res = eng.run(reqs)
+        assert all(r.status == "ok" and len(r.tokens) == 8 for r in res)
+        assert TPA.launches_int8.count == base.n_layers * eng.steps
+        assert (TQM.launches.count > 0) == (backend == "scheduled")
         tokens[backend] = {r.rid: r.tokens.tolist() for r in res}
     assert tokens["xla"] == tokens["scheduled"]
