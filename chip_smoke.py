@@ -41,6 +41,27 @@ The int8 quantized path adds, after phase 4:
   identical across backends, agreement with the fp engine reported, and
   the reference's >= 0.99 agreement gate at its own test geometry.
 
+The exact multi-precision integer GEMM (paper §3.1) adds, after K3:
+
+  k4_vs_plain: K4 (limb_gemm) against its plain version, ``torch.equal``
+  on every diagonal plane: 2, 3 and 5 limbs a side and la != lb, M, N, K
+  on and off the tile grid (M or N = 1 and 2, K = 1, 64 and 9216), every
+  tile, limbs over the whole digit range and the digits of int32 min and
+  max (``--phases k4_vs_plain`` is the cheap first call after a kernel
+  edit); and after the int8 scaled-down phase:
+
+  limb_path: ``ops.limb_matmul`` end to end on every integer p-GEMM of
+  the MD (15 INT32 trailing updates), FFE (INT16 FIR) and ALI (INT8 fc6,
+  fc7, fc8 at batch 32) workloads of the port's ``core.workloads``, the
+  example's shape and kernels_bench's two: (hi, lo) bit-equal to the
+  numpy ``int_matmul_mod64_ref`` on the host, ``combine_diagonals`` on
+  the card bit-equal to its CPU result, the explorer's schedule printed
+  beside each, and K4's launch count (zeroed just before, read just
+  after) equal to the number of calls.  Phase 7 times K4, the whole
+  ``limb_matmul``, the combine, the plain version and la*lb
+  ``torch._int_mm`` calls (context) at md.update960, ffe.fir and
+  alexnet.fc6.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
@@ -63,7 +84,7 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
 #: H100 SXM data-sheet peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
 K1_REPLACES = "src/repro/kernels/paged_attention.py:123"
@@ -72,6 +93,8 @@ K2_REPLACES = "src/repro/kernels/mpgemm.py:183"
 K1I_REPLACES = "src/repro/kernels/paged_attention.py:87"
 K3_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 K3_REPLACES = "src/repro/kernels/quant_matmul.py:45"
+K4_SOURCE = "src/repro_torch/kernels/csrc/limb_gemm.cu"
+K4_REPLACES = "src/repro/kernels/limb_gemm.py:61"
 
 
 def smi_line() -> str:
@@ -91,7 +114,8 @@ class Smoke:
         self.failures: list[str] = []
         self.report: dict = {"phases": {}}
         self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0,
-                     "paged_decode_int8": 0.0, "quant_matmul": 0.0}
+                     "paged_decode_int8": 0.0, "quant_matmul": 0.0,
+                     "limb_gemm": 0.0}
 
     def phase(self, name: str, fn) -> None:
         print(f"== {name}", flush=True)
@@ -108,12 +132,14 @@ class Smoke:
         print(f"== {name}: {status} ({dt:.1f} s)", flush=True)
 
 
-def time_ms(fn, iters: int, flush=None) -> float:
+def time_ms(fn, iters: int, flush=None, sleep_cycles: int = 1_000_000
+            ) -> float:
     """Median device time of one call: CUDA events around each call, the
     L2-flush write (when given) between calls outside the events, and a
-    device-side sleep before the start event so that the device is still
-    busy while the host enqueues the call -- host launch overhead then
-    falls outside the measured interval."""
+    device-side sleep of ``sleep_cycles`` before the start event so that
+    the device is still busy while the host enqueues the call -- host
+    launch overhead then falls outside the measured interval (a call of
+    many small launches needs a longer sleep)."""
     import torch
     for _ in range(3):
         fn()
@@ -123,7 +149,7 @@ def time_ms(fn, iters: int, flush=None) -> float:
     for s, e in ev:
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         s.record()
         fn()
         e.record()
@@ -158,13 +184,19 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch import configs as CONFIGS
+    from repro_torch.core import workloads as WL
     from repro_torch.core.dataflow import Dataflow
-    from repro_torch.core.scheduler import ScheduleCache
+    from repro_torch.core.pgemm import PGEMM, split_paths
+    from repro_torch.core.precision import INT16, INT32
+    from repro_torch.core.scheduler import GTAConfig, ScheduleCache, explore
     from repro_torch.kernels import _build
+    from repro_torch.kernels import accumulator as ACC
+    from repro_torch.kernels import limb_gemm as LG
     from repro_torch.kernels import mpgemm as MP
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import ref as KREF
     from repro_torch.models import network as N
     from repro_torch.models.layers import tree_map
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
@@ -192,6 +224,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logs = _build.build(ptxas_info=True)
         rep["build_s"] = time.perf_counter() - t0
+        rep["build_logs"] = logs
         for name, log in logs.items():
             used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
             print(f"{name}: {len(used)} kernels; " + (used[0] if used else ""))
@@ -371,6 +404,62 @@ def main(argv=None) -> int:
               f"|err|/(1+|ref|) <= 1e-4 (fp32 out)")
         if bad:
             raise AssertionError(f"K3 mismatches: {bad[:3]}")
+
+    # -- 4c. K4 (limb GEMM) against its plain version -----------------------
+    def limbs(l, rows, cols, seed):
+        """Balanced base-128 digits drawn over their whole range."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(-64, 64, (l, rows, cols), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def p_k4():
+        # (la, lb, M, N, K, tile or None = the wrapper's choice)
+        cases = [(2, 2, 64, 128, 64, None), (3, 3, 65, 130, 100, None),
+                 (5, 5, 960, 960, 64, None), (5, 5, 33, 70, 1, None),
+                 (2, 2, 32, 4096, 9216, None), (3, 3, 1000, 2, 128, None),
+                 (5, 5, 777, 1, 64, None), (5, 5, 1, 300, 96, None),
+                 (3, 3, 2, 257, 33, None), (2, 5, 100, 60, 70, None),
+                 (5, 3, 61, 77, 160, None), (1, 1, 17, 19, 5, None)]
+        cases += [(l, l, 37, 45, 83, t) for t in range(len(LG.TILES))
+                  for l in (2, 3, 5)]
+        rows = []
+        for n, (la, lb, M, N_, K_, tile) in enumerate(cases):
+            a, b = limbs(la, M, K_, 2 * n), limbs(lb, K_, N_, 2 * n + 1)
+            got = LG.limb_gemm_diagonals(a, b, tile=tile)
+            want = LG.limb_gemm_diagonals_ref(a, b)
+            torch.cuda.synchronize()
+            err = (got.long() - want.long()).abs().max().item()
+            sm.kerr["limb_gemm"] = max(sm.kerr["limb_gemm"], err)
+            t = LG.tile_for(M, N_) if tile is None else tile
+            rows.append({"la": la, "lb": lb, "M": M, "N": N_, "K": K_,
+                         "tile": list(LG.TILES[t]), "max_abs_err": err,
+                         "ok": bool(torch.equal(got, want))})
+        # the digits of int32 extremes, decomposed on the card and on the
+        # host, through the kernel
+        ext = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0, 1, -2 ** 30],
+                           dtype=torch.int32)
+        x = ext.repeat(48 * 40 // len(ext)).reshape(48, 40)
+        d_dev = LG.limb_decompose(x.to(dev), 5)
+        d_cpu = LG.limb_decompose(x, 5)
+        same_digits = torch.equal(d_dev.cpu(), d_cpu) and np.array_equal(
+            d_cpu.numpy(), KREF.limb_decompose_ref(x.numpy(), 5))
+        got = LG.limb_gemm_diagonals(d_dev, d_dev.transpose(1, 2)
+                                     .contiguous())
+        want = LG.limb_gemm_diagonals_ref(d_dev, d_dev.transpose(1, 2))
+        torch.cuda.synchronize()
+        err = (got.long() - want.long()).abs().max().item()
+        sm.kerr["limb_gemm"] = max(sm.kerr["limb_gemm"], err)
+        rows.append({"la": 5, "lb": 5, "M": 48, "N": 48, "K": 40,
+                     "tile": list(LG.TILES[LG.tile_for(48, 48)]),
+                     "inputs": "digits of int32 min/max", "max_abs_err": err,
+                     "ok": bool(torch.equal(got, want)) and same_digits})
+        rep["k4_check"] = rows
+        bad = [r for r in rows if not r["ok"]]
+        print(f"K4: {len(rows) - len(bad)}/{len(rows)} cases torch.equal to "
+              f"the plain version (tolerance 0: integers); limb_decompose "
+              f"on the card equals the host and numpy: {same_digits}")
+        if bad:
+            raise AssertionError(f"K4 mismatches: {bad[:3]}")
 
     # -- 5. the main path ---------------------------------------------------
     def requests(rng, n, lo, hi, new, vocab, prefix=0):
@@ -687,6 +776,86 @@ def main(argv=None) -> int:
             raise AssertionError(f"int8 vs fp agreement {agree_ref} < 0.99 "
                                  f"at the reference's gate geometry")
 
+    # -- 6c. the exact integer GEMM path -------------------------------------
+    limb_launches: dict = {}
+
+    def limb_gemms():
+        """Every integer p-GEMM of MD, FFE and ALI's fully connected layers
+        (core.workloads), the example's shape and kernels_bench's two."""
+        ops = []
+        for name in ("MD", "FFE", "ALI"):
+            gemms, _ = split_paths(WL.workload(name))
+            ops += [g for g in gemms
+                    if name != "ALI" or ".fc" in g.name]
+        ops.append(PGEMM("example", M=96, N=64, K=160, precision=INT32))
+        ops += [PGEMM(f"kernels_bench.{p.name}", M=128, N=128, K=256,
+                      precision=p) for p in (INT16, INT32)]
+        return ops
+
+    def int_operands(op, seed):
+        dt = {"INT8": np.int8, "INT16": np.int16, "INT32": np.int32}[
+            op.precision.name]
+        info = np.iinfo(dt)
+        rng = np.random.default_rng(seed)
+        return (rng.integers(info.min, info.max, (op.M, op.K), dtype=dt,
+                             endpoint=True),
+                rng.integers(info.min, info.max, (op.K, op.N), dtype=dt,
+                             endpoint=True))
+
+    def p_limb_path():
+        ops = limb_gemms()
+        inputs = [int_operands(op, 100 + n) for n, op in enumerate(ops)]
+        dev_in = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+                  for a, b in inputs]
+        torch.cuda.synchronize()
+        LG.launches.reset()
+        outs = [OPS.limb_matmul(a, b) for a, b in dev_in]
+        torch.cuda.synchronize()
+        launches = LG.launches.count
+        limb_launches["limb_gemm"] = launches
+        rows, cfg = [], GTAConfig(lanes=4)
+        for op, (a, b), (ta, tb), (hi, lo) in zip(ops, inputs, dev_in, outs):
+            rhi, rlo = KREF.int_matmul_mod64_ref(a, b)
+            exact = np.array_equal(hi.cpu().numpy(), rhi) and \
+                np.array_equal(lo.cpu().numpy(), rlo)
+            nl = KREF.n_limbs_for(op.precision.bits)
+            diags = LG.limb_gemm_diagonals_ref(LG.limb_decompose(ta, nl),
+                                               LG.limb_decompose(tb, nl))
+            chi, clo = ACC.combine_diagonals(diags, KREF.LIMB_BITS)
+            hhi, hlo = ACC.combine_diagonals(diags.cpu(), KREF.LIMB_BITS)
+            combine_same = torch.equal(chi.cpu(), hhi) and \
+                torch.equal(clo.cpu(), hlo)
+            choice = explore(op, cfg)
+            sch = choice.best.schedule
+            rows.append({"name": op.name, "M": op.M, "N": op.N, "K": op.K,
+                         "precision": op.precision.name, "limbs": nl,
+                         "tile": list(LG.TILES[LG.tile_for(op.M, op.N)]),
+                         "exact": bool(exact),
+                         "combine_cuda_equals_cpu": bool(combine_same),
+                         "schedule": {"dataflow": sch.dataflow.value,
+                                      "array": [sch.array.rows,
+                                                sch.array.cols],
+                                      "k_fold": sch.k_fold,
+                                      "cycles": choice.cycles,
+                                      "traffic_bytes": choice.traffic_bytes,
+                                      "space": len(choice.space)}})
+            print(f"limb_matmul {op.name} ({op.M}, {op.N}, {op.K}) "
+                  f"{op.precision.name}: exact mod 2^64 {exact}, combine "
+                  f"cuda == cpu {combine_same}; explorer: "
+                  f"{sch.dataflow.value} {sch.array.rows}x{sch.array.cols} "
+                  f"k_fold={sch.k_fold} {choice.cycles:.0f} cycles")
+        rep["limb_path"] = {"calls": len(ops), "k4_launches": launches,
+                            "rows": rows}
+        bad = [r["name"] for r in rows
+               if not (r["exact"] and r["combine_cuda_equals_cpu"])]
+        print(f"limb_path: {len(rows) - len(bad)}/{len(rows)} p-GEMMs exact; "
+              f"K4 launches {launches} for {len(ops)} limb_matmul calls")
+        if bad:
+            raise AssertionError(f"limb_matmul not exact: {bad}")
+        if launches != len(ops):
+            raise AssertionError(f"K4 launched {launches} times for "
+                                 f"{len(ops)} limb_matmul calls")
+
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
 
@@ -825,6 +994,80 @@ def main(argv=None) -> int:
         timing["quant_matmul"] = dict(rows[3], shape="decode down projection "
                                       "(8, 896, 4864) bf16 x -> fp32")
 
+        # K4 and the whole limb_matmul at three of limb_path's shapes; no
+        # PyTorch call computes an exact integer GEMM mod 2^64 (library:
+        # none); la*lb torch._int_mm calls, where its shape rules allow,
+        # are given as context
+        by_name = {op.name: op for op in limb_gemms()}
+        rows = []
+        for name in ("md.update960", "ffe.fir", "alexnet.fc6"):
+            op = by_name[name]
+            a, b = (torch.from_numpy(x).to(dev) for x in int_operands(op, 5))
+            nl = KREF.n_limbs_for(op.precision.bits)
+            al, bl = LG.limb_decompose(a, nl), LG.limb_decompose(b, nl)
+            diags = LG.limb_gemm_diagonals(al, bl)
+            kern = time_ms(lambda: LG.limb_gemm_diagonals(al, bl), 50, flush)
+            # decompose + K4 + combine is about 120 launches, the plain
+            # version and the context 25-70: a 10 ms sleep keeps the host's
+            # enqueue outside the events (device time); the wall time of
+            # back-to-back calls includes it
+            long_sleep = 20_000_000
+            whole = time_ms(lambda: OPS.limb_matmul(a, b), 20, flush,
+                            long_sleep)
+            decomp = time_ms(lambda: (LG.limb_decompose(a, nl),
+                                      LG.limb_decompose(b, nl)), 20, flush,
+                             long_sleep)
+            comb = time_ms(lambda: ACC.combine_diagonals(diags,
+                                                         KREF.LIMB_BITS),
+                           20, flush, long_sleep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                OPS.limb_matmul(a, b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 10 * 1e3
+            plain = time_ms(lambda: LG.limb_gemm_diagonals_ref(al, bl), 10,
+                            flush, long_sleep)
+            ctx, ctx_name = None, "torch._int_mm x la*lb (int8 -> int32)"
+            try:
+                a8, b8 = al[0].contiguous(), bl[0].contiguous()
+                torch._int_mm(a8, b8)
+
+                def int_mms():
+                    for i in range(nl):
+                        for j in range(nl):
+                            torch._int_mm(al[i], bl[j])
+                ctx = time_ms(int_mms, 20, flush, long_sleep)
+            except RuntimeError as e:
+                ctx_name = f"none (torch._int_mm: {str(e)[:80]})"
+            M_, N_, K_ = op.M, op.N, op.K
+            nbytes = nl * M_ * K_ + nl * K_ * N_ + (2 * nl - 1) * M_ * N_ * 4
+            b_ms, b_by = bound_ms(nbytes, 2 * nl * nl * M_ * N_ * K_, "int8")
+            rows.append({"name": name, "M": M_, "N": N_, "K": K_,
+                         "precision": op.precision.name, "limbs": nl,
+                         "tile": list(LG.TILES[LG.tile_for(M_, N_)]),
+                         "ms": kern, "limb_matmul_ms": whole,
+                         "limb_matmul_wall_ms": wall,
+                         "decompose_ms": decomp, "combine_ms": comb,
+                         "plain_ms": plain,
+                         "library_ms": None,
+                         "library": "none (no PyTorch call computes an exact "
+                                    "integer GEMM mod 2^64 on CUDA)",
+                         "context_ms": ctx, "context": ctx_name,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"K4 {name} ({M_}, {N_}, {K_}) {op.precision.name}, "
+                  f"{nl} limbs, tile {rows[-1]['tile'][:2]}: kernel "
+                  f"{kern*1e3:.1f} us, limb_matmul {whole*1e3:.1f} us on "
+                  f"the device (decompose {decomp*1e3:.1f} us, combine "
+                  f"{comb*1e3:.1f} us), {wall*1e3:.1f} us wall a call, "
+                  f"plain {plain*1e3:.1f} us, "
+                  f"{ctx_name} "
+                  f"{'-' if ctx is None else f'{ctx*1e3:.1f} us'}, bound "
+                  f"{b_ms*1e3:.2f} us ({b_by})")
+        timing["limb_gemm_shapes"] = rows
+        timing["limb_gemm"] = dict(rows[0], shape="md.update960 (960, 960, "
+                                   "64) INT32, 5 limbs a side")
+
     # -- 8. where one decode step's time goes ------------------------------
     def p_profile():
         from torch.autograd import DeviceType
@@ -874,9 +1117,11 @@ def main(argv=None) -> int:
     phases = (("device", p_device), ("build", p_build),
               ("k1_vs_plain", p_k1), ("k1_int8_vs_plain", p_k1_int8),
               ("k2_vs_plain", p_k2), ("k3_vs_plain", p_k3),
+              ("k4_vs_plain", p_k4),
               ("main_path", p_main), ("quant_main_path", p_quant_main),
               ("scaled_down_fp32", p_small),
               ("quant_scaled_down_fp32", p_quant_small),
+              ("limb_path", p_limb_path),
               ("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
@@ -889,17 +1134,19 @@ def main(argv=None) -> int:
 
     # launches: each kernel's count in the scheduled run of its main path
     # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3 (each
-    # backend's counts are in the report)
+    # backend's counts are in the report) -- and K4's in limb_path
     kernels = []
+    fp_run = main_launches.get("scheduled", {})
+    int8_run = quant_launches.get("scheduled", {})
     for name, src, repl, counts in (
-            ("paged_decode", K1_SOURCE, K1_REPLACES, main_launches),
-            ("paged_decode_int8", K1_SOURCE, K1I_REPLACES, quant_launches),
-            ("mpgemm", K2_SOURCE, K2_REPLACES, main_launches),
-            ("quant_matmul", K3_SOURCE, K3_REPLACES, quant_launches)):
+            ("paged_decode", K1_SOURCE, K1_REPLACES, fp_run),
+            ("paged_decode_int8", K1_SOURCE, K1I_REPLACES, int8_run),
+            ("mpgemm", K2_SOURCE, K2_REPLACES, fp_run),
+            ("quant_matmul", K3_SOURCE, K3_REPLACES, int8_run),
+            ("limb_gemm", K4_SOURCE, K4_REPLACES, limb_launches)):
         t = timing.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl,
-                        "launches": counts.get("scheduled", {}).get(name, 0),
+                        "replaces": repl, "launches": counts.get(name, 0),
                         "max_abs_err": sm.kerr[name],
                         "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
                         "bound_ms": t.get("bound_ms"),

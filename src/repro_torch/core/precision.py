@@ -1,7 +1,12 @@
-"""Precision formats (copy of ``repro.core.precision``, the part serving
-needs): the schedule cache keys every GEMM by the GTA precision of its
-operands, so the port must map dtypes to the same names as the reference
-or the two caches would split.
+"""Precision formats and limb algebra (copy of ``repro.core.precision``,
+paper §3.1).
+
+A ``w``-bit multiplication decomposes into ``l = ceil(w / 8)`` 8-bit limbs
+whose cross-products follow the dataflow of a small matrix product; the
+MPRA occupancy rules and the Table-3 SIMD gains below derive from that
+count.  The schedule cache keys every GEMM by the GTA precision of its
+operands, so the port maps dtypes to the same names as the reference, or
+the two caches would split.
 """
 
 from __future__ import annotations
@@ -38,6 +43,13 @@ class Precision:
     def bytes(self) -> int:
         return self.bits // 8
 
+    @property
+    def is_float(self) -> bool:
+        return self.pclass is PClass.FLOAT
+
+    def __str__(self) -> str:
+        return self.name
+
 
 INT8 = Precision("INT8", 8, 8, PClass.INT)
 INT16 = Precision("INT16", 16, 16, PClass.INT)
@@ -64,3 +76,68 @@ def precision_for_dtype(dtype, default: str | None = None) -> Precision:
     if name is None:
         raise ValueError(f"no GTA precision for dtype {dtype}")
     return BY_NAME[name]
+
+
+def precision(name: str) -> Precision:
+    """Look up a precision by (case-insensitive) name; ``BF16`` is an
+    alias of ``BP16``."""
+    key = name.upper().replace("BF16", "BP16")
+    if key not in BY_NAME:
+        raise KeyError(f"unknown precision {name!r}; known: {sorted(BY_NAME)}")
+    return BY_NAME[key]
+
+
+# ---------------------------------------------------------------------------
+# MPRA occupancy rules (paper §3.1 / §4.1)
+# ---------------------------------------------------------------------------
+
+def ws_row_expansion(p: Precision) -> int:
+    """WS/IS: a p-bit stationary operand occupies this many PEs along a
+    row (its limbs in consecutive positions, Fig. 1a)."""
+    return p.limbs
+
+
+def os_expansion(p: Precision) -> int:
+    """OS: the mapped workload expands by this factor in both array
+    directions (both operands limb-decomposed spatially, Fig. 1b)."""
+    return p.limbs
+
+
+def vector_pes_per_mult(p: Precision) -> int:
+    """SIMD: one p-bit multiply consumes l*l PEs in one step."""
+    return p.limbs * p.limbs
+
+
+def simd_gain(p: Precision, mpra_pes: int = 64,
+              vpu_datapath_bits: int = 64) -> float:
+    """Table 3: throughput of one MPRA lane (``mpra_pes`` 8-bit PEs, l*l
+    of them per multiply) over one VPU lane (``vpu_datapath_bits /
+    p.bits`` multiplies a cycle): INT8 8x, INT16 4x, INT32 2x, INT64 1x,
+    BP16 16x, FP16 4x, FP32 3.56x, FP64 1.31x."""
+    vpu_rate = vpu_datapath_bits / p.bits
+    mpra_rate = mpra_pes / vector_pes_per_mult(p)
+    return mpra_rate / vpu_rate
+
+
+# ---------------------------------------------------------------------------
+# Limb decomposition / recomposition algebra
+# ---------------------------------------------------------------------------
+
+def limb_count(total_bits: int, limb_bits: int = PE_BITS) -> int:
+    return math.ceil(total_bits / limb_bits)
+
+
+def limb_weights(n_limbs: int, limb_bits: int = PE_BITS) -> list[int]:
+    """Positional weights 2^(i*limb_bits) of limb i (little-endian)."""
+    return [1 << (i * limb_bits) for i in range(n_limbs)]
+
+
+def product_limb_pairs(n_limbs: int) -> dict[int, list[tuple[int, int]]]:
+    """Every (i, j) limb pair of a full cross-product, grouped by the
+    output shift ``i + j``: the anti-diagonals the multi-precision
+    accumulator (Fig. 3) sums with shift-adds."""
+    groups: dict[int, list[tuple[int, int]]] = {}
+    for i in range(n_limbs):
+        for j in range(n_limbs):
+            groups.setdefault(i + j, []).append((i, j))
+    return groups

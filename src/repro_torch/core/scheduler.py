@@ -1,10 +1,12 @@
 """Schedule exploration and the serving ScheduleCache (paper §5; copy of
-``repro.core.scheduler``, the part serving uses).
+``repro.core.scheduler``).
 
 Every candidate (lane arrangement x dataflow x fold x direction) is costed
 by ``core.dataflow`` and the paper's priority rule picks the least sum of
 squares of the min-normalized (cycles, traffic).  ``ScheduleCache``
-memoizes the winner per (M, N, K, precision) for the serving hot path.
+memoizes the winner per (M, N, K, precision) for the serving hot path;
+``schedule_workload`` and the Pareto helpers are the paper's per-workload
+and Fig.-9 analysis.
 The realizable-fold filter uses ``tiling.FOLD_GRAIN`` (128, the same K
 granularity as the reference's MXU_DIM), so the port's cache makes the
 same (dataflow, k_fold) choice as the reference's for every shape.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 from collections.abc import Sequence
 
@@ -37,8 +40,18 @@ class GTAConfig:
     max_group_lanes: int = 64
 
     @property
+    def total_pes(self) -> int:
+        return self.lanes * self.mpra_dim * self.mpra_dim
+
+    @property
     def group_lanes(self) -> int:
         return min(self.lanes, self.max_group_lanes)
+
+    @property
+    def groups(self) -> int:
+        """Mask groups run data-parallel when the lanes exceed one group
+        (§4.2)."""
+        return max(1, self.lanes // self.group_lanes)
 
     def arrangements(self) -> list[ArrayShape]:
         """All (rows x cols) arrays reachable by re-arranging the lanes of
@@ -50,8 +63,18 @@ class GTAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleChoice:
+    """The selected schedule plus the whole explored space."""
+
     best: CostReport
     space: tuple[CostReport, ...]
+
+    @property
+    def cycles(self) -> float:
+        return self.best.cycles
+
+    @property
+    def traffic_bytes(self) -> float:
+        return self.best.traffic_bytes
 
 
 def sum_of_squares_priority(reports: Sequence[CostReport]) -> CostReport:
@@ -73,6 +96,13 @@ def explore(op: PGEMM, config: GTAConfig,
         space.extend(candidate_costs(op, array, k_folds=k_folds))
     return ScheduleChoice(best=sum_of_squares_priority(space),
                           space=tuple(space))
+
+
+def schedule_workload(ops: Sequence[PGEMM], config: GTAConfig
+                      ) -> list[ScheduleChoice]:
+    """Schedule every p-GEMM of a workload independently (the paper
+    schedules per operator)."""
+    return [explore(op, config) for op in ops]
 
 
 GemmKey = tuple[int, int, int, str]  # (M, N, K, precision name)
@@ -193,3 +223,28 @@ class ScheduleCache:
         with self._lock:
             self.hits = 0
             self.misses = 0
+
+
+# ---------------------------------------------------------------------------
+# Pareto utilities (Fig. 9 analysis)
+# ---------------------------------------------------------------------------
+
+def pareto_front(reports: Sequence[CostReport]) -> list[CostReport]:
+    """Non-dominated (cycles, traffic) points, ascending by cycles."""
+    pts = sorted(reports, key=lambda r: (r.cycles, r.traffic_bytes))
+    front: list[CostReport] = []
+    best_t = math.inf
+    for r in pts:
+        if r.traffic_bytes < best_t:
+            front.append(r)
+            best_t = r.traffic_bytes
+    return front
+
+
+def is_on_or_dominated_boundary(choice: CostReport,
+                                reports: Sequence[CostReport]) -> bool:
+    """True iff no candidate strictly dominates ``choice`` in both
+    metrics (the sum-of-squares pick never is dominated)."""
+    return not any(r.cycles < choice.cycles
+                   and r.traffic_bytes < choice.traffic_bytes
+                   for r in reports)

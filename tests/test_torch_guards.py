@@ -118,3 +118,28 @@ def test_chip_smoke_refuses_without_port(tmp_path):
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_limb_kernel_wrapper_never_falls_back():
+    """K4 likewise, called directly or through ops.limb_matmul: a tensor
+    off the CPU is launched or refused, never sent to the plain version."""
+    from repro_torch.kernels import limb_gemm as LG
+    from repro_torch.kernels import ops as OPS
+    before = LG.launches.count
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        LG.limb_gemm_diagonals(
+            torch.zeros(5, 4, 32, dtype=torch.int8, device="meta"),
+            torch.zeros(5, 32, 16, dtype=torch.int8, device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        OPS.limb_matmul(torch.zeros(4, 32, dtype=torch.int32, device="meta"),
+                        torch.zeros(32, 16, dtype=torch.int32,
+                                    device="meta"))
+    assert LG.launches.count == before
+
+
+def test_multiprecision_entry_point_refuses_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without CUDA")
+    from repro_torch.launch import multiprecision_gemm
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiprecision_gemm.main([])

@@ -9,7 +9,8 @@ Tolerances: fp32 results to 1e-4 (the reference's GEMM bound; the kernel
 and the plain version sum in different orders), bf16 outputs to 2e-2
 (one bf16 rounding of values of order 1, 2^-7, plus order effects).
 K3 (quant_matmul) writes fp32 for either input type and is held to
-|err| / (1 + |ref|) <= 1e-4.
+|err| / (1 + |ref|) <= 1e-4.  K4 (limb_gemm) and ``limb_matmul`` are
+integer and held bit-exact (``torch.equal``).
 """
 
 import dataclasses
@@ -22,9 +23,12 @@ import torch
 from repro_torch import configs as TC
 from repro_torch.core import tiling
 from repro_torch.core.dataflow import Dataflow
+from repro_torch.kernels import limb_gemm as TLG
 from repro_torch.kernels import mpgemm as TMP
+from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import quant_matmul as TQM
+from repro_torch.kernels.ref import int_matmul_mod64_ref
 from repro_torch.models import network as TN
 from repro_torch.serving.engine import ContinuousEngine, Request
 from _torch_port import cuda  # noqa: F401  (fixture)
@@ -186,3 +190,53 @@ def test_quant_engine_backends_agree_on_card(cuda):
         assert (TQM.launches.count > 0) == (backend == "scheduled")
         tokens[backend] = {r.rid: r.tokens.tolist() for r in res}
     assert tokens["xla"] == tokens["scheduled"]
+
+
+@pytest.mark.parametrize("la,lb", [(2, 2), (3, 3), (5, 5), (2, 5)])
+def test_limb_gemm_kernel_matches_plain(cuda, la, lb):
+    """K4 bit-exact against its plain version on ragged shapes, every
+    tile, limbs over the whole balanced digit range."""
+    gen = torch.Generator().manual_seed(la * 10 + lb)
+    before = TLG.launches.count
+    shapes = [(65, 130, 100), (33, 257, 129), (1, 70, 64), (70, 1, 33),
+              (2, 45, 7), (300, 2, 1)]
+    launched = 0
+    for (M, N, K), tile in itertools.product(shapes, [None, 0, 2, 3, 4]):
+        a = torch.randint(-64, 64, (la, M, K), generator=gen,
+                          dtype=torch.int8)
+        b = torch.randint(-64, 64, (lb, K, N), generator=gen,
+                          dtype=torch.int8)
+        got = TLG.limb_gemm_diagonals(a.to(cuda), b.to(cuda), tile=tile)
+        want = TLG.limb_gemm_diagonals_ref(a, b)
+        torch.cuda.synchronize()
+        launched += 1
+        assert torch.equal(got.cpu(), want), (M, N, K, tile)
+    assert TLG.launches.count - before == launched
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+def test_limb_matmul_exact_on_card(cuda, dtype):
+    """ops.limb_matmul on the card equals the numpy mod-2^64 oracle, with
+    the dtype's extremes in the operands."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(7)
+    a = rng.integers(info.min, info.max, (47, 96), dtype=dtype,
+                     endpoint=True)
+    b = rng.integers(info.min, info.max, (96, 33), dtype=dtype,
+                     endpoint=True)
+    a[0, :], b[:, 0] = info.min, info.max
+    hi, lo = TOPS.limb_matmul(torch.from_numpy(a).to(cuda),
+                              torch.from_numpy(b).to(cuda))
+    rhi, rlo = int_matmul_mod64_ref(a, b)
+    assert np.array_equal(hi.cpu().numpy(), rhi)
+    assert np.array_equal(lo.cpu().numpy(), rlo)
+
+
+def test_multiprecision_entry_point_on_card(cuda, capsys):
+    """``python -m repro_torch.launch.multiprecision_gemm`` on the card:
+    exact, through K4."""
+    from repro_torch.launch import multiprecision_gemm
+    before = TLG.launches.count
+    assert multiprecision_gemm.main([]) is True
+    assert TLG.launches.count == before + 1
+    assert "exact INT32 matmul mod 2^64: True" in capsys.readouterr().out
