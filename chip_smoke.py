@@ -62,6 +62,30 @@ The exact multi-precision integer GEMM (paper §3.1) adds, after K3:
   ``torch._int_mm`` calls (context) at md.update960, ffe.fir and
   alexnet.fc6.
 
+The Mamba2 (SSD) path adds, after K4:
+
+  k5_vs_plain: K5 (ssd_intra) against its plain version within rtol =
+  atol = 2e-4 at G in {1, 640}, Q in {32, 256}, P = 64, N = 128, a ragged
+  case, the reference test's two shapes, a case whose cums fall by 300
+  across the chunk (every masked exponent overflows exp: no NaN may
+  appear) and a case with dt = 0 on a pad tail; then the port's
+  ``ssd_chunked`` (K5 inside) against a sequential fp64 recurrence at
+  H = 80, P = 64, N = 128, S = 512 (two chunks of 256) with an initial
+  state.  After the int8 main path:
+
+  mamba2_path: mamba2-2.7b at full width (random weights from ``--seed``,
+  bf16), 8 slots, max_len 1024, ``prefill_chunk=256`` (the published
+  chunk), phase 5's request shape, under both backends with the pool
+  audit after every step: K5 launches 64 a chunk step and none in decode,
+  K2 129 a step (in_proj and out_proj of 64 layers, and the head) under
+  scheduled and 0 under xla, K1 never.  After the int8 scaled-down phase:
+
+  mamba2_scaled_down_fp32: scaled-down mamba2 (fp32, init-scale weights)
+  at ``prefill_chunk`` 32 and 64: greedy tokens identical across
+  backends, at least 4 distinct tokens a request.  Phase 7 times K5 at
+  G = 640, Q = 32 and 256, and phase 8 profiles a full-width mamba2
+  decode step and prefill chunk step under both backends.
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
@@ -95,6 +119,8 @@ K3_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 K3_REPLACES = "src/repro/kernels/quant_matmul.py:45"
 K4_SOURCE = "src/repro_torch/kernels/csrc/limb_gemm.cu"
 K4_REPLACES = "src/repro/kernels/limb_gemm.py:61"
+K5_SOURCE = "src/repro_torch/kernels/csrc/ssd_intra.cu"
+K5_REPLACES = "src/repro/kernels/ssd.py:52"
 
 
 def smi_line() -> str:
@@ -115,7 +141,7 @@ class Smoke:
         self.report: dict = {"phases": {}}
         self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0,
                      "paged_decode_int8": 0.0, "quant_matmul": 0.0,
-                     "limb_gemm": 0.0}
+                     "limb_gemm": 0.0, "ssd_intra": 0.0}
 
     def phase(self, name: str, fn) -> None:
         print(f"== {name}", flush=True)
@@ -197,7 +223,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import ref as KREF
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models import network as N
+    from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
     from repro_torch.serving.engine import ContinuousEngine, Request
@@ -461,6 +489,111 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"K4 mismatches: {bad[:3]}")
 
+    # -- 4d. K5 (SSD intra-chunk) against its plain version ------------------
+    def ssd_case(G, Q, P, N_, seed, kind="init", pad=0, fall=None):
+        """K5 operands: x, b, c ~ N(0, 1) and, for ``init``, dt =
+        softplus(N(0, 1)) with A = -1 (the full-width init: A_log = 0,
+        dt_bias = 0), cums = cumsum(dt * A); for ``test`` the reference
+        kernel test's dt ~ U(0.01, 0.2) and cums = cumsum(-dt / 2).
+        ``pad`` zeroes dt on the last rows (the engine's pad tail);
+        ``fall`` makes cums fall linearly by that much over the chunk."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(G, Q, P, generator=gen, device=dev)
+        if kind == "test":
+            dt = 0.01 + 0.19 * torch.rand(G, Q, generator=gen, device=dev)
+        else:
+            dt = torch.nn.functional.softplus(
+                torch.randn(G, Q, generator=gen, device=dev))
+        if pad:
+            dt[:, Q - pad:] = 0.0
+        cums = torch.cumsum(-dt * (0.5 if kind == "test" else 1.0), dim=1)
+        if fall is not None:
+            cums = torch.linspace(0.0, -fall, Q, device=dev).expand(
+                G, Q).contiguous()
+        b = torch.randn(G, Q, N_, generator=gen, device=dev)
+        c = torch.randn(G, Q, N_, generator=gen, device=dev)
+        return x, dt, cums, b, c
+
+    def p_k5():
+        cases = [("G=1 Q=32", (1, 32, 64, 128), {}),
+                 ("G=640 Q=32", (640, 32, 64, 128), {}),
+                 ("G=1 Q=256", (1, 256, 64, 128), {}),
+                 ("G=640 Q=256", (640, 256, 64, 128), {}),
+                 ("ragged", (3, 100, 24, 40), {}),
+                 ("reference test (4, 32, 16, 8)", (4, 32, 16, 8),
+                  {"kind": "test"}),
+                 ("reference test (6, 64, 32, 16)", (6, 64, 32, 16),
+                  {"kind": "test"}),
+                 ("cums fall by 300", (8, 256, 64, 128), {"fall": 300.0}),
+                 ("dt = 0 on a 100-row pad tail", (8, 256, 64, 128),
+                  {"pad": 100})]
+        rows = []
+        for n, (label, shape, kw) in enumerate(cases):
+            args_ = ssd_case(*shape, seed=40 + n, **kw)
+            got = SSD.ssd_intra(*args_)
+            want = SSD.ssd_intra_ref(*args_)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            sm.kerr["ssd_intra"] = max(sm.kerr["ssd_intra"], err)
+            cums = args_[2]
+            # the largest masked exponent cums_s - cums_t (s < t)
+            seg = cums[:, :, None] - cums[:, None, :]
+            masked = seg.masked_fill(torch.ones_like(seg[0], dtype=torch.bool)
+                                     .tril(), float("-inf")).max().item()
+            ok = bool(torch.isfinite(got).all()) and bool(torch.allclose(
+                got, want, rtol=2e-4, atol=2e-4))
+            rows.append({"case": label, "G": shape[0], "Q": shape[1],
+                         "P": shape[2], "N": shape[3], "max_abs_err": err,
+                         "max_abs_y": want.abs().max().item(),
+                         "max_masked_exponent": masked,
+                         "exp_of_it_overflows": masked > 88.7, "ok": ok})
+            print(f"K5 {label} {shape}: max|err| {err:.3e} (max|y| "
+                  f"{rows[-1]['max_abs_y']:.1f}), largest masked exponent "
+                  f"{masked:.1f}{' (exp overflows)' if masked > 88.7 else ''}"
+                  f", finite {bool(torch.isfinite(got).all())} "
+                  f"{'ok' if ok else 'MISMATCH'}")
+        # ssd_chunked with K5 inside against the sequential recurrence
+        gen = torch.Generator(device=dev).manual_seed(7)
+        B, S, H, P, G, N_, Q = 1, 512, 80, 64, 1, 128, 256
+        x = torch.randn(B, S, H, P, generator=gen, device=dev)
+        dt = 0.01 + 0.19 * torch.rand(B, S, H, generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand(H, generator=gen, device=dev))
+        Bm = torch.randn(B, S, G, N_, generator=gen, device=dev)
+        Cm = torch.randn(B, S, G, N_, generator=gen, device=dev)
+        h0 = torch.randn(B, H, P, N_, generator=gen, device=dev)
+        before = SSD.launches.count
+        y, h = SSM.ssd_chunked(x, dt, A, Bm, Cm, Q, h0)
+        torch.cuda.synchronize()
+        k5_calls = SSD.launches.count - before
+        hr, ys = h0.double(), []
+        xd, dtd, Ad, Bd, Cd = (t.double() for t in (x, dt, A, Bm, Cm))
+        for t in range(S):
+            hr = hr * torch.exp(dtd[:, t] * Ad)[:, :, None, None] \
+                + torch.einsum("bhp,bn->bhpn", xd[:, t] * dtd[:, t, :, None],
+                               Bd[:, t, 0])
+            ys.append(torch.einsum("bn,bhpn->bhp", Cd[:, t, 0], hr))
+        yr = torch.stack(ys, dim=1)
+        y_err = (y.double() - yr).abs().max().item()
+        h_err = (h.double() - hr).abs().max().item()
+        chunked_ok = k5_calls == 1 and bool(torch.allclose(
+            y.double(), yr, rtol=2e-3, atol=2e-3)) and bool(
+            torch.allclose(h.double(), hr, rtol=2e-3, atol=2e-3))
+        rep["k5_check"] = {"cases": rows, "ssd_chunked": {
+            "B": B, "S": S, "H": H, "P": P, "N": N_, "chunk": Q,
+            "y_max_abs_err": y_err, "h_max_abs_err": h_err,
+            "k5_launches": k5_calls, "ok": chunked_ok}}
+        bad = [r["case"] for r in rows if not r["ok"]]
+        print(f"K5: {len(rows) - len(bad)}/{len(rows)} cases within rtol = "
+              f"atol = 2e-4 of the plain version, all finite; ssd_chunked "
+              f"(H={H}, P={P}, N={N_}, S={S}, two chunks of {Q}, with h0) "
+              f"against the fp64 recurrence: y max|err| {y_err:.2e}, final "
+              f"state {h_err:.2e} (tol 2e-3), K5 launches {k5_calls}")
+        if bad:
+            raise AssertionError(f"K5 mismatches: {bad}")
+        if not chunked_ok:
+            raise AssertionError("ssd_chunked disagrees with the sequential "
+                                 "recurrence")
+
     # -- 5. the main path ---------------------------------------------------
     def requests(rng, n, lo, hi, new, vocab, prefix=0):
         pre = rng.integers(3, vocab, prefix).astype(np.int32)
@@ -468,18 +601,20 @@ def main(argv=None) -> int:
             [pre, rng.integers(3, vocab, int(rng.integers(lo, hi)))
              .astype(np.int32)]), new, eos=-1) for i in range(n)]
 
-    def serve(cfg, params, reqs, slots, max_len, audit, quant_policy=None):
+    def serve(cfg, params, reqs, slots, max_len, audit, quant_policy=None,
+              prefill_chunk=None):
         """One engine run; the schedule stats and the launch counts cover
         only this run (zeroed just before it, read just after)."""
         eng = ContinuousEngine(cfg, params, slots=slots, max_len=max_len,
                                audit=audit, quant_policy=quant_policy,
-                               device=dev)
+                               prefill_chunk=prefill_chunk, device=dev)
         eng.schedule.reset()
         torch.cuda.synchronize()
         PA.launches.reset()
         PA.launches_int8.reset()
         MP.reset_launches()
         QM.launches.reset()
+        SSD.launches.reset()
         t0 = time.perf_counter()
         res = eng.run(reqs)
         torch.cuda.synchronize()
@@ -488,7 +623,8 @@ def main(argv=None) -> int:
                   "mpgemm": MP.launches.count,
                   "mpgemm_by_dataflow": dict(MP.launches_by_dataflow),
                   "paged_decode_int8": PA.launches_int8.count,
-                  "quant_matmul": QM.launches.count}
+                  "quant_matmul": QM.launches.count,
+                  "ssd_intra": SSD.launches.count}
         return eng, sorted(res, key=lambda r: r.rid), wall, counts
 
     def summary(eng, res, wall):
@@ -528,20 +664,26 @@ def main(argv=None) -> int:
                                                     params_full())
         return full_params["q"]
 
+    def prefill_once(cfg, params, toks):
+        """Logits of a two-row prefill chunk (32 and 20 real tokens)."""
+        table = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
+        lens = torch.tensor([32, 20], dtype=torch.int32, device=dev)
+        caches = N.expand_cache_pos(
+            N.init_paged_caches(cfg, 2, 9, 16, device=dev), 2)
+        logits, _ = N.prefill_paged_chunk(
+            params, cfg, toks, caches, torch.arange(
+                2, dtype=torch.int32, device=dev), table, lens, lens - 1)
+        return logits
+
+    def prefill_tokens(rng, vocab):
+        return torch.from_numpy(rng.integers(3, vocab, (2, 32))
+                                .astype(np.int32)).to(dev)
+
     def prefill_logits(cfgs, params, rng, tag):
         """Logits of a short two-row prefill under both backends."""
-        logits = {}
-        table = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
-        toks = torch.from_numpy(rng.integers(3, full.vocab, (2, 32))
-                                .astype(np.int32)).to(dev)
-        lens = torch.tensor([32, 20], dtype=torch.int32, device=dev)
-        for b, cfg in cfgs.items():
-            caches = N.expand_cache_pos(
-                N.init_paged_caches(cfg, 2, 9, 16, device=dev), 2)
-            logits[b], _ = N.prefill_paged_chunk(
-                params, cfg, toks, caches, torch.arange(
-                    2, dtype=torch.int32, device=dev), table, lens, lens - 1)
-        lx, ls = logits["xla"], logits["scheduled"]
+        toks = prefill_tokens(rng, cfgs["xla"].vocab)
+        lx, ls = (prefill_once(cfgs[b], params, toks)
+                  for b in ("xla", "scheduled"))
         rel = ((lx - ls).abs().max() / lx.abs().max()).item()
         rep[f"{tag}_logits_rel_diff"] = rel
         print(f"{tag}: prefill logits {tuple(lx.shape)} finite: "
@@ -685,6 +827,86 @@ def main(argv=None) -> int:
                 torch.isfinite(lx).all() and torch.isfinite(ls).all()):
             raise AssertionError("int8 logits not finite / bad shape")
 
+    # -- 5c. mamba2 at full width ---------------------------------------------
+    m2 = CONFIGS.get("mamba2_2_7b")
+    m2_params: dict = {}
+    mamba_launches: dict = {}
+
+    def params_m2():
+        if not m2_params:
+            m2_params["p"] = N.init(m2, args.seed, dev)
+        return m2_params["p"]
+
+    def p_mamba():
+        params = params_m2()
+        rng = np.random.default_rng(args.seed)
+        reqs = requests(rng, 8, 64, 513, 32, m2.vocab)    # phase 5's shape
+        chunk = m2.ssm.chunk                              # 256, published
+        cfgs = {b: dataclasses.replace(m2, gemm_backend=b)
+                for b in ("xla", "scheduled")}
+        warm = requests(np.random.default_rng(99), 2, 40, 41, 4, m2.vocab)
+        ContinuousEngine(cfgs["xla"], params, slots=8, max_len=1024,
+                         prefill_chunk=chunk, device=dev).run(warm)
+        torch.cuda.synchronize()
+        runs, tokens = {}, {}
+        for b, cfg in cfgs.items():
+            eng, res, wall, counts = serve(cfg, params, reqs, 8, 1024,
+                                           audit=True, prefill_chunk=chunk)
+            runs[b] = summary(eng, res, wall)
+            runs[b]["launches"] = counts
+            runs[b]["kv_allocated"] = eng.kv_bytes()["allocated"]
+            runs[b]["share_prefixes"] = eng.pool.share_prefixes
+            mamba_launches[b] = counts
+            tokens[b] = [r.tokens.tolist() for r in res]
+        same = sum(x == y for tx, ts in zip(tokens["xla"],
+                                            tokens["scheduled"])
+                   for x, y in zip(tx, ts))
+        total = sum(len(t) for t in tokens["xla"])
+        rep["mamba2"] = runs
+        rep["mamba2_agreement"] = same / total
+        for b, r in runs.items():
+            print(f"[{card}] mamba2-2.7b full width, {b}, prefill_chunk "
+                  f"{chunk}: {r['ok']}/{r['requests']} ok, {r['new_tokens']} "
+                  f"tokens in {r['wall_s']:.2f} s = {r['tok_per_s']:.1f} "
+                  f"tok/s, TTFT p50 {r['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                  f"{r['tpot_p50_ms']:.2f} ms, {r['decode_steps']} decode + "
+                  f"{r['chunk_steps']} chunk steps, launches "
+                  f"{r['launches']}")
+        print(f"greedy agreement xla vs scheduled (bf16): {same}/{total}")
+        lx, ls = prefill_logits(cfgs, params, rng, "mamba2")
+        # the same prefill in fp32 (weights cast up, xla): how far each
+        # backend's bf16 logits lie from it (reported, not gated)
+        m32 = dataclasses.replace(m2, param_dtype="float32",
+                                  compute_dtype="float32")
+        toks = prefill_tokens(np.random.default_rng(args.seed), m2.vocab)
+        l32 = prefill_once(m32, tree_map(lambda _p, a: a.float(), params),
+                           toks)
+        vs32 = {b: ((prefill_once(cfgs[b], params, toks) - l32).abs().max()
+                    / l32.abs().max()).item() for b in cfgs}
+        rep["mamba2_bf16_vs_fp32_logits_rel_diff"] = vs32
+        print(f"mamba2 bf16 prefill logits against fp32 (same weights, "
+              f"same tokens): max|bf16 - fp32| / max|fp32| = {vs32}")
+        bad = [b for b, r in runs.items()
+               if r["ok"] != 8 or r["new_tokens"] != 8 * 32
+               or r["share_prefixes"] or r["kv_allocated"] != 0]
+        if bad:
+            raise AssertionError(f"mamba2 runs failed checks: {bad}")
+        for b, r in runs.items():
+            c, steps = r["launches"], r["decode_steps"] + r["chunk_steps"]
+            want = {"ssd_intra": m2.n_layers * r["chunk_steps"],
+                    "mpgemm": (2 * m2.n_layers + 1) * steps
+                    if b == "scheduled" else 0,
+                    "paged_decode": 0, "paged_decode_int8": 0,
+                    "quant_matmul": 0}
+            got = {k: c[k] for k in want}
+            if got != want or r["chunk_steps"] == 0 \
+                    or r["decode_steps"] == 0:
+                raise AssertionError(f"mamba2 {b} launches {got}, expected "
+                                     f"{want}")
+        if tuple(lx.shape) != (2, m2.vocab) or not (
+                torch.isfinite(lx).all() and torch.isfinite(ls).all()):
+            raise AssertionError("mamba2 logits not finite / bad shape")
+
     # -- 6. scaled-down fp32: backends token-identical -----------------------
     def p_small():
         # at init scale a random model repeats one token per request; x5
@@ -775,6 +997,44 @@ def main(argv=None) -> int:
         if agree_ref < 0.99:
             raise AssertionError(f"int8 vs fp agreement {agree_ref} < 0.99 "
                                  f"at the reference's gate geometry")
+
+    # -- 6b'. scaled-down fp32 mamba2: backends token-identical --------------
+    def p_mamba_small():
+        # init-scale weights: the streams of this model already vary
+        base = m2.scaled_down()
+        params = N.init(base, args.seed, dev)
+        rng = np.random.default_rng(args.seed + 1)
+        reqs = requests(rng, 8, 4, 100, 16, base.vocab)
+        out = {}
+        for chunk in (32, 64):
+            toks, counts = {}, {}
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(base, gemm_backend=b)
+                eng, res, _, counts[b] = serve(cfg, params, reqs, 4, 160,
+                                               audit=True,
+                                               prefill_chunk=chunk)
+                if not all(r.status == "ok" and len(r.tokens) == 16
+                           for r in res):
+                    raise AssertionError(f"scaled-down mamba2 {b}: a "
+                                         f"request failed")
+                if counts[b]["ssd_intra"] != base.n_layers * eng.chunk_steps:
+                    raise AssertionError(f"scaled-down mamba2 {b}: K5 "
+                                         f"launches {counts[b]}")
+                toks[b] = [r.tokens.tolist() for r in res]
+            same = toks["xla"] == toks["scheduled"]
+            distinct = [len(set(t)) for t in toks["xla"]]
+            out[chunk] = {"identical": same, "distinct_per_request": distinct,
+                          "launches": counts}
+            print(f"scaled-down fp32 mamba2, prefill_chunk {chunk}: greedy "
+                  f"tokens identical across backends: {same}; distinct "
+                  f"tokens a request {distinct}; K5 launches "
+                  f"{counts['scheduled']['ssd_intra']}")
+            if not same:
+                raise AssertionError(f"scaled-down mamba2 tokens differ "
+                                     f"between backends (chunk {chunk})")
+            if min(distinct) < 4:
+                raise AssertionError(f"degenerate greedy output: {distinct}")
+        rep["mamba2_small"] = out
 
     # -- 6c. the exact integer GEMM path -------------------------------------
     limb_launches: dict = {}
@@ -1068,10 +1328,83 @@ def main(argv=None) -> int:
         timing["limb_gemm"] = dict(rows[0], shape="md.update960 (960, 960, "
                                    "64) INT32, 5 limbs a side")
 
-    # -- 8. where one decode step's time goes ------------------------------
+        # K5 at the mamba2 chunk shapes: 8 slots x 80 heads, Q = 32 (the
+        # engine's default chunk) and 256 (the published one); no PyTorch
+        # call computes this function (library: none); two fp32 bmm calls
+        # with the precomputed decay mask between them are the context
+        rows = []
+        for Q in (32, 256):
+            G, P, N_ = 640, 64, 128
+            x, dt, cums, b, c = ssd_case(G, Q, P, N_, seed=Q)
+            kern = time_ms(lambda: SSD.ssd_intra(x, dt, cums, b, c), 50,
+                           flush)
+            plain = time_ms(lambda: SSD.ssd_intra_ref(x, dt, cums, b, c),
+                            20, flush)
+            causal = torch.ones(Q, Q, dtype=torch.bool, device=dev).tril()
+            seg = (cums[:, :, None] - cums[:, None, :]).masked_fill(
+                ~causal, float("-inf"))
+            ldt = torch.exp(seg) * dt[:, None, :]
+            bt = b.transpose(1, 2)
+            ctx = time_ms(lambda: torch.bmm(torch.bmm(c, bt) * ldt, x), 50,
+                          flush)
+            nbytes = 4 * (2 * G * Q * P + 2 * G * Q + 2 * G * Q * N_)
+            flops = Q * (Q + 1) // 2 * 2 * (N_ + P) * G
+            b_ms, b_by = bound_ms(nbytes, flops, "float32")
+            rows.append({"G": G, "Q": Q, "P": P, "N": N_, "ms": kern,
+                         "plain_ms": plain, "library_ms": None,
+                         "library": "none (no PyTorch call computes the "
+                                    "masked two-GEMM chain)",
+                         "context_ms": ctx,
+                         "context": "torch.bmm(torch.bmm(C, B^T) * L dt, X),"
+                                    " fp32, TF32 off, mask precomputed",
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"K5 fp32 G={G} Q={Q} P={P} N={N_}: kernel "
+                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, two bmm "
+                  f"(context) {ctx*1e3:.1f} us, bound {b_ms*1e3:.1f} us "
+                  f"({b_by})")
+        timing["ssd_intra_shapes"] = rows
+        timing["ssd_intra"] = dict(rows[1], shape="mamba2 chunk step (G = "
+                                   "8 x 80, Q = 256, P = 64, N = 128) fp32")
+
+    # -- 8. where one step's time goes --------------------------------------
     def p_profile():
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        def measure(eng, n_wall):
+            """Wall time a step over ``n_wall`` steps, then one more step
+            under torch.profiler: device time, kernel launches, the
+            heaviest kernels and K5's launches in that step."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_wall):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n_wall * 1e3
+            SSD.launches.reset()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            # kernel events only: aten ops carry their kernels' time too
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+            return {"step_ms": wall, "device_ms": dev_ms,
+                    "device_busy_share": dev_ms / wall,
+                    "device_kernels": sum(e.count for e in ev),
+                    "k5_launches": SSD.launches.count,
+                    "top": [(e.key[:60], e.self_device_time_total / 1e3,
+                             e.count) for e in top]}
+
+        def show(name, r):
+            print(f"[{card}] full-width {name}: {r['step_ms']:.2f} ms "
+                  f"wall, {r['device_ms']:.2f} ms on the device "
+                  f"({100 * r['device_busy_share']:.0f}% busy), "
+                  f"{r['device_kernels']} kernel launches; top: " + "; ".join(
+                      f"{k} {t:.2f} ms x{c}" for k, t, c in r["top"]))
+
         out = {}
         for b, model in (("xla", full), ("scheduled", full),
                          ("xla", full_quant), ("scheduled", full_quant)):
@@ -1086,41 +1419,43 @@ def main(argv=None) -> int:
                 eng.submit(r)
             for _ in range(3):        # one chunk step prefills all, then
                 eng.step()            # every step is a decode step
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 5 * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                eng.step()
-                torch.cuda.synchronize()
-            # kernel events only: aten ops carry their kernels' time too
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-            kernels = sum(e.count for e in ev)
-            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-            out[b] = {"step_ms": wall, "device_ms": dev_ms,
-                      "device_busy_share": dev_ms / wall,
-                      "device_kernels": kernels,
-                      "top": [(e.key[:60], e.self_device_time_total / 1e3,
-                               e.count) for e in top]}
-            print(f"[{card}] full-width decode step, {b}: {wall:.2f} ms "
-                  f"wall, {dev_ms:.2f} ms on the device "
-                  f"({100 * dev_ms / wall:.0f}% busy), {kernels} kernel "
-                  f"launches; top: " + "; ".join(
-                      f"{k} {t:.2f} ms x{c}" for k, t, c in out[b]["top"]))
+            out[b] = measure(eng, 5)
+            show(f"decode step, {b}", out[b])
+        # mamba2: prompts of three chunks (2.5 x 256 tokens); step 1
+        # (chunk) is timed, step 2 (chunk) profiled, step 3 ends the
+        # prefill, then decode steps
+        plen = 5 * m2.ssm.chunk // 2
+        for b in ("xla", "scheduled"):
+            cfg = dataclasses.replace(m2, gemm_backend=b)
+            eng = ContinuousEngine(cfg, params_m2(), slots=8, max_len=1024,
+                                   prefill_chunk=m2.ssm.chunk, device=dev)
+            for r in requests(np.random.default_rng(7), 8, plen, plen + 1,
+                              16, m2.vocab):
+                eng.submit(r)
+            chunk = measure(eng, 1)
+            eng.step()
+            eng.step()
+            decode = measure(eng, 5)
+            for kind, r in (("chunk", chunk), ("decode", decode)):
+                out[f"mamba2 {b} {kind}"] = r
+                show(f"mamba2 {kind} step, {b}", r)
+            if chunk["k5_launches"] != m2.n_layers \
+                    or decode["k5_launches"] != 0:
+                raise AssertionError(f"mamba2 {b}: K5 launched "
+                                     f"{chunk['k5_launches']} times in a "
+                                     f"chunk step and {decode['k5_launches']}"
+                                     f" in a decode step")
         rep["step_profile"] = out
 
     phases = (("device", p_device), ("build", p_build),
               ("k1_vs_plain", p_k1), ("k1_int8_vs_plain", p_k1_int8),
               ("k2_vs_plain", p_k2), ("k3_vs_plain", p_k3),
-              ("k4_vs_plain", p_k4),
+              ("k4_vs_plain", p_k4), ("k5_vs_plain", p_k5),
               ("main_path", p_main), ("quant_main_path", p_quant_main),
+              ("mamba2_path", p_mamba),
               ("scaled_down_fp32", p_small),
               ("quant_scaled_down_fp32", p_quant_small),
+              ("mamba2_scaled_down_fp32", p_mamba_small),
               ("limb_path", p_limb_path),
               ("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
@@ -1133,8 +1468,9 @@ def main(argv=None) -> int:
         sm.failures.append("not every phase ran (--phases)")
 
     # launches: each kernel's count in the scheduled run of its main path
-    # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3 (each
-    # backend's counts are in the report) -- and K4's in limb_path
+    # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3, the
+    # mamba2 run for K5 (each backend's counts are in the report) -- and
+    # K4's in limb_path
     kernels = []
     fp_run = main_launches.get("scheduled", {})
     int8_run = quant_launches.get("scheduled", {})
@@ -1143,7 +1479,9 @@ def main(argv=None) -> int:
             ("paged_decode_int8", K1_SOURCE, K1I_REPLACES, int8_run),
             ("mpgemm", K2_SOURCE, K2_REPLACES, fp_run),
             ("quant_matmul", K3_SOURCE, K3_REPLACES, int8_run),
-            ("limb_gemm", K4_SOURCE, K4_REPLACES, limb_launches)):
+            ("limb_gemm", K4_SOURCE, K4_REPLACES, limb_launches),
+            ("ssd_intra", K5_SOURCE, K5_REPLACES,
+             mamba_launches.get("scheduled", {}))):
         t = timing.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": counts.get(name, 0),

@@ -10,10 +10,11 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: list[str] = ["qwen2_0_5b"]
+ARCH_IDS: list[str] = ["qwen2_0_5b", "mamba2_2_7b"]
 
 #: accepted aliases (the dashed ids)
-ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b"}
+ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b",
+                            "mamba2-2.7b": "mamba2_2_7b"}
 
 __all__ = ["ALIASES", "ARCH_IDS", "get"]
 

@@ -7,8 +7,12 @@ a report of throughput, time to first token (TTFT), time per output token
     python -m repro_torch.launch.serve --arch qwen2_0_5b --scaled-down \\
         --gemm-backend scheduled --device cpu
     python -m repro_torch.launch.serve --arch qwen2_0_5b --quant
+    python -m repro_torch.launch.serve --arch mamba2_2_7b \
+        [--gemm-backend scheduled]
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
+an SSM config (mamba2) raises ``NotImplementedError``: its quantized
+path is not ported yet.
 """
 
 from __future__ import annotations

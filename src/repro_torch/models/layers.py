@@ -20,13 +20,15 @@ PyTree = Any
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal | zeros | ones
     scale: float = 0.02
 
     def initialize(self, gen: torch.Generator, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
         return (torch.randn(self.shape, generator=gen, dtype=torch.float32,
                             device=device) * self.scale).to(dtype)
 

@@ -1,5 +1,6 @@
 """Network assembly and the paged serving functions (port of the serving
-part of ``repro.models.network``, for plain ATTN patterns).
+part of ``repro.models.network``, for plain ATTN patterns and for
+attention-free MAMBA2 patterns).
 
 Parameters keep the reference's tree: ``{"embed": {"table"}, "final_norm",
 "blocks": (group,)}`` with a leading stacked layer dim on every block
@@ -10,8 +11,11 @@ leaf.  Paged cache trees keep its layout too:
 where k/v are POOL leaves shared by all slots (indexed through the block
 table) and ``pos`` the per-slot write cursors.  Under ``cfg.quant_kv`` k/v
 are int8 and the pool also holds the fp32 scale sidecars ``k_scale`` /
-``v_scale`` (L, nb, bs, KV).  The serving functions
-update the pool tensors IN PLACE and return the tree with new cursors.
+``v_scale`` (L, nb, bs, KV).  A MAMBA2 group holds per-slot recurrent
+state instead, ``{"conv": (L, slots, K-1, conv_dim), "ssm": (L, slots, H,
+P, N)}`` (slot axis 1), and an attention-free tree carries one top-level
+cursor ``"pos": (slots,)``.  The serving functions update the pool and
+slot-state tensors IN PLACE and return the tree with new cursors.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (ParamDef, embed_apply, embed_defs,
                                        head_apply, init_params, mlp_apply,
@@ -32,6 +37,8 @@ from repro_torch.models.layers import (ParamDef, embed_apply, embed_defs,
 PyTree = Any
 
 _POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+#: per-slot recurrent state of MAMBA2 groups (slot axis 1)
+_SLOT_STATE_KEYS = ("conv", "ssm")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -39,17 +46,26 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.pattern) | set(cfg.tail) != {BlockKind.ATTN} or cfg.tail \
-            or cfg.moe is not None or cfg.mla is not None \
+    if set(cfg.pattern) not in ({BlockKind.ATTN}, {BlockKind.MAMBA2}) \
+            or cfg.tail or cfg.moe is not None or cfg.mla is not None \
             or cfg.first_layer_dense_ff or cfg.frontend != "none" \
             or cfg.post_norms or cfg.scale_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only plain ATTN decoder stacks are ported so far "
-            f"(see ROADMAP.md for the other families)")
+            f"{cfg.name}: only plain ATTN decoder stacks and attention-free "
+            f"MAMBA2 stacks are ported so far (see ROADMAP.md for the "
+            f"other families)")
 
 
 def _norm_def(d: int) -> ParamDef:
     return ParamDef((d,), init="zeros")
+
+
+def _block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
+    d = cfg.d_model
+    if kind is BlockKind.MAMBA2:
+        return {"ln1": _norm_def(d), "mamba": S.mamba2_defs(cfg)}
+    return {"ln1": _norm_def(d), "ln2": _norm_def(d),
+            "attn": A.attn_defs(cfg), "mlp": mlp_defs(d, cfg.d_ff)}
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -59,9 +75,8 @@ def param_defs(cfg: ModelConfig) -> dict:
                   "embed": embed_defs(cfg.vocab, d)}
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.vocab, d))
-    block = {"ln1": _norm_def(d), "ln2": _norm_def(d),
-             "attn": A.attn_defs(cfg), "mlp": mlp_defs(d, cfg.d_ff)}
-    defs["blocks"] = stack_defs(tuple(block for _ in cfg.pattern),
+    defs["blocks"] = stack_defs(tuple(_block_defs(cfg, k)
+                                      for k in cfg.pattern),
                                 cfg.n_groups_scan)
     return defs
 
@@ -87,13 +102,29 @@ def _layer(tree: PyTree, i: int) -> PyTree:
 def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 pos_offset: torch.Tensor, caches: PyTree,
                 block_table: torch.Tensor,
-                pos_advance: torch.Tensor | None) -> tuple[torch.Tensor,
-                                                           PyTree]:
+                pos_advance: torch.Tensor | None,
+                seq_lens: torch.Tensor | None) -> tuple[torch.Tensor,
+                                                        PyTree]:
     backend = gemm_backend(cfg)
     eps = cfg.norm_eps
     groups = []
-    for gi, _kind in enumerate(cfg.pattern):
+    for gi, kind in enumerate(cfg.pattern):
         stacked, gcache = params["blocks"][gi], caches["groups"][gi]
+        if kind is BlockKind.MAMBA2:
+            # ``seq_lens`` masks the recurrence of pad positions and of
+            # rows riding along (0): their state comes back unchanged
+            for li in range(cfg.n_groups_scan):
+                p = _layer(stacked, li)
+                state = {k: gcache[k][li] for k in _SLOT_STATE_KEYS}
+                out, new = S.mamba2_block(p["mamba"],
+                                          rms_norm(x, p["ln1"], eps), cfg,
+                                          state=state, seq_len=seq_lens,
+                                          backend=backend)
+                x = x + out
+                for k in _SLOT_STATE_KEYS:
+                    state[k].copy_(new[k])
+            groups.append(gcache)
+            continue
         new_pos = []
         pools = [k for k in _POOL_KEYS if k in gcache]
         for li in range(cfg.n_groups_scan):
@@ -118,12 +149,18 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
 def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
            caches: PyTree, pos_offset: torch.Tensor,
            block_table: torch.Tensor, pos_advance: torch.Tensor | None,
+           seq_lens: torch.Tensor | None,
            last_index: torch.Tensor | None = None
            ) -> tuple[torch.Tensor, PyTree]:
     x = embed_apply(params["embed"], tokens, _dtype(cfg.compute_dtype))
     x, new_caches = _run_blocks(params, cfg, x, pos_offset=pos_offset,
                                 caches=caches, block_table=block_table,
-                                pos_advance=pos_advance)
+                                pos_advance=pos_advance, seq_lens=seq_lens)
+    if "pos" in caches:
+        # an attention-free tree's cursor: no layer moves it
+        adv = 0 if pos_advance is None else pos_advance.to(
+            caches["pos"].dtype)
+        new_caches["pos"] = caches["pos"] + adv
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = (params["embed"]["table"] if cfg.tie_embeddings
             else params["lm_head"])
@@ -144,9 +181,11 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> tuple[torch.Tensor, PyTree]:
     """One decode step over the paged pool: tokens (B, 1); pos (B,) the
     per-slot positions; ``pos_advance`` (B,) 1 for the slots that decode
-    and 0 for rows riding along.  Returns (logits fp32 (B, V), caches);
-    the pools are written in place."""
-    return _serve(params, cfg, tokens, caches, pos, block_table, pos_advance)
+    and 0 for rows riding along (it doubles as the SSM validity mask, so
+    a 0-row's recurrent state is untouched).  Returns (logits fp32 (B,
+    V), caches); the pools and slot states are written in place."""
+    return _serve(params, cfg, tokens, caches, pos, block_table, pos_advance,
+                  seq_lens=pos_advance)
 
 
 def prefill_paged_chunk(params: PyTree, cfg: ModelConfig,
@@ -163,7 +202,7 @@ def prefill_paged_chunk(params: PyTree, cfg: ModelConfig,
     view = gather_slot_view(caches, slot_ids)
     pos0 = _first_pos_leaf(view)
     logits, new_view = _serve(params, cfg, tokens, view, pos0, block_rows,
-                              lens, last_index)
+                              lens, lens, last_index)
     return logits, scatter_slot_view(caches, new_view, slot_ids)
 
 
@@ -174,19 +213,32 @@ def prefill_paged_chunk(params: PyTree, cfg: ModelConfig,
 def init_paged_caches(cfg: ModelConfig, slots: int, num_blocks: int,
                       block_size: int, dtype: torch.dtype | None = None,
                       device: str | torch.device | None = None) -> PyTree:
-    """Cache tree for block-paged serving.  Callers still
-    ``expand_cache_pos(tree, slots)`` so each slot has its own cursor."""
+    """Cache tree for block-paged serving: attention leaves become shared
+    pools, SSM state stays per slot (it is O(1) per slot: nothing to
+    page).  Callers still ``expand_cache_pos(tree, slots)`` so each slot
+    has its own cursor."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.compute_dtype)
 
-    def group():
+    def group(kind):
+        if kind is BlockKind.MAMBA2:
+            one = S.make_ssm_state(cfg, slots, dtype, dev)
+            return {k: one[k].new_zeros((cfg.n_groups_scan,)
+                                        + tuple(one[k].shape))
+                    for k in one}
         per_layer = [A.make_paged_kv_cache(cfg, num_blocks, block_size,
                                            dtype, dev)
                      for _ in range(cfg.n_groups_scan)]
         return {k: torch.stack([c[k] for c in per_layer])
                 for k in per_layer[0]}
-    return {"groups": tuple(group() for _ in cfg.pattern)}
+    caches: dict = {"groups": tuple(group(k) for k in cfg.pattern)}
+    if cfg.attention_free:
+        # no layer carries a cursor, but the paged entry points read each
+        # row's from the tree (``_first_pos_leaf``): one top-level cursor,
+        # advanced by ``_serve``
+        caches["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return caches
 
 
 def _is_pos(path: tuple) -> bool:
@@ -200,18 +252,30 @@ def expand_cache_pos(caches: PyTree, batch: int) -> PyTree:
         if _is_pos(path) else a, caches)
 
 
+def _is_slot_state(path: tuple) -> bool:
+    return path[-1] in _SLOT_STATE_KEYS
+
+
 def gather_slot_view(caches: PyTree, slot_ids: torch.Tensor) -> PyTree:
-    """B-row view for the rows ``slot_ids``: cursors are gathered, pool
-    leaves pass through whole (writes go through the block table)."""
+    """B-row view for the rows ``slot_ids``: cursors and slot state are
+    gathered, pool leaves pass through whole (writes go through the
+    block table)."""
     ids = slot_ids.long()
-    return tree_map(lambda path, a: a.index_select(-1, ids)
-                    if _is_pos(path) else a, caches)
+
+    def fn(path, a):
+        if _is_pos(path):
+            return a.index_select(-1, ids)
+        if _is_slot_state(path):
+            return a.index_select(1, ids)
+        return a
+    return tree_map(fn, caches)
 
 
 def scatter_slot_view(caches: PyTree, view: PyTree, slot_ids: torch.Tensor
                       ) -> PyTree:
     """Merge an updated view back: cursors scatter at the DISTINCT
-    ``slot_ids``; pool leaves are the view's (already written in place)."""
+    ``slot_ids``, slot state scatters there in place; pool leaves are the
+    view's (already written in place)."""
     ids = slot_ids.long()
 
     def fn(path, big, small):
@@ -219,6 +283,8 @@ def scatter_slot_view(caches: PyTree, view: PyTree, slot_ids: torch.Tensor
             out = big.clone()
             out[..., ids] = small.to(big.dtype)
             return out
+        if _is_slot_state(path):
+            return big.index_copy_(1, ids, small.to(big.dtype))
         return small
     return tree_map(fn, caches, view)
 
@@ -231,15 +297,20 @@ def set_slot_pos(caches: PyTree, pos: torch.Tensor) -> PyTree:
 
 def _first_pos_leaf(view: PyTree) -> torch.Tensor:
     """The per-row cursor vector of a view (every layer's cursor moves in
-    lockstep; stacked leaves carry (L, B) -- take layer 0)."""
-    leaf = view["groups"][0]["pos"]
+    lockstep; stacked leaves carry (L, B) -- take layer 0; an
+    attention-free tree has only its top-level cursor)."""
+    leaf = view["pos"] if "pos" in view else view["groups"][0]["pos"]
     return (leaf[0] if leaf.dim() == 2 else leaf).to(torch.int32)
 
 
 def reset_slot_state(caches: PyTree, slot: int, pos_value: int) -> PyTree:
     """Fresh-request reset of one slot: its cursors become ``pos_value``
-    (the resident shared-prefix length).  Pool leaves are untouched."""
+    (the resident shared-prefix length) and its recurrent state is
+    zeroed in place.  Pool leaves are untouched."""
     def fn(path, a):
+        if _is_slot_state(path):
+            a[:, slot] = 0
+            return a
         if not _is_pos(path):
             return a
         out = a.clone()
@@ -251,7 +322,7 @@ def reset_slot_state(caches: PyTree, slot: int, pos_value: int) -> PyTree:
 def copy_paged_blocks(caches: PyTree, src: torch.Tensor, dst: torch.Tensor
                       ) -> PyTree:
     """Copy pool blocks ``src[i] -> dst[i]`` in every pool leaf, in place
-    (copy-on-write forks)."""
+    (copy-on-write forks).  Slot state is untouched."""
     s, d = src.long(), dst.long()
 
     def fn(path, a):
@@ -262,7 +333,8 @@ def copy_paged_blocks(caches: PyTree, src: torch.Tensor, dst: torch.Tensor
 
 
 def kv_cache_bytes(caches: PyTree) -> int:
-    """Bytes of the attention KV pool leaves."""
+    """Bytes of the attention KV pool leaves (0 for an attention-free
+    tree: slot state and cursors are not counted)."""
     total = 0
 
     def fn(path, a):

@@ -115,6 +115,10 @@ class ContinuousEngine:
             raise ValueError(f"params live on {table.device}, the engine "
                              f"runs on {self.device}")
         self.cfg = cfg
+        if cfg.quant_serving and cfg.has_recurrent_state:
+            raise NotImplementedError(
+                f"{cfg.name}: quantized serving of SSM configs is not "
+                f"ported yet (ROADMAP.md, Queue 1 item 8)")
         if cfg.quant_serving:
             # idempotent: an already-quantized tree passes through
             params = serving_quant_params(cfg, params, quant_policy)
@@ -144,9 +148,13 @@ class ContinuousEngine:
             raise ValueError(f"kv_blocks {kv_blocks} cannot host one "
                              f"full-window request ({per_slot} blocks of "
                              f"{block_size})")
+        # prefix sharing skips the shared prefill; recurrent (SSM) state
+        # cannot be rebuilt from shared KV blocks, so it would drop the
+        # prefix from the recurrence: off for such configs
         self.pool = KVPool(kv_blocks, block_size, slots=slots,
-                           max_len=max_len, quantized=cfg.quant_kv,
-                           metrics=m)
+                           max_len=max_len,
+                           share_prefixes=not cfg.has_recurrent_state,
+                           quantized=cfg.quant_kv, metrics=m)
         self.caches = N.expand_cache_pos(
             N.init_paged_caches(cfg, slots, kv_blocks, block_size,
                                 device=self.device), slots)
@@ -191,6 +199,11 @@ class ContinuousEngine:
                   (m_tokens, cfg.d_ff, d), (m_tokens, d, cfg.d_ff),
                   (head_rows, cfg.vocab, d)]
         for M, Nn, K in shapes:
+            # attention-free configs zero out dims (mamba2: d_ff == 0, no
+            # MLP); a degenerate GEMM has no schedule and the §5 cost
+            # model cannot take K == 0, so it is skipped
+            if M <= 0 or Nn <= 0 or K <= 0:
+                continue
             self.schedule.resolve(M, Nn, K, self._prec)
             if cfg.quant_serving:
                 # int8 leaves run ops.quant_matmul, which resolves under

@@ -3,7 +3,9 @@
 ``cuda`` is the fixture of the tests marked ``gpu``: it decides at run
 time (never at import) whether a card is present and skips otherwise.
 ``reference_params`` builds weights once with the reference's
-``network.init`` and hands the same numpy tree to both packages.
+``network.init`` and hands the same numpy tree to both packages (qwen2
+at x4 by default; mamba2 runs at the init scale, where its greedy
+streams already vary).
 """
 
 import dataclasses
@@ -26,16 +28,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def reference_params(scale: float = WEIGHT_SCALE, seed: int = 0):
-    """(jax config, numpy params, port config) for scaled-down qwen2."""
+def reference_params(scale: float = WEIGHT_SCALE, seed: int = 0,
+                     arch: str = "qwen2_0_5b"):
+    """(jax config, numpy params, port config) for the scaled-down
+    ``arch``, the reference's init times ``scale``."""
     import jax
     from repro import configs as JC
     from repro.models import network as JN
     from repro_torch import configs as TC
-    jcfg = JC.get("qwen2_0_5b").scaled_down()
+    jcfg = JC.get(arch).scaled_down()
     params = jax.tree.map(lambda a: np.asarray(a) * np.float32(scale),
                           JN.init(jcfg, jax.random.PRNGKey(seed)))
-    return jcfg, params, TC.get("qwen2_0_5b").scaled_down()
+    return jcfg, params, TC.get(arch).scaled_down()
 
 
 def with_backend(cfg, backend: str):

@@ -143,3 +143,30 @@ def test_multiprecision_entry_point_refuses_cpu_unless_asked():
     from repro_torch.launch import multiprecision_gemm
     with pytest.raises(RuntimeError, match="CUDA"):
         multiprecision_gemm.main([])
+
+
+def test_ssd_kernel_wrapper_never_falls_back():
+    """K5 likewise: a meta tensor is neither launched nor sent to the
+    plain version."""
+    from repro_torch.kernels import ssd as K
+    before = K.launches.count
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        K.ssd_intra(*(torch.zeros(shape, device="meta") for shape in (
+            (2, 8, 4), (2, 8), (2, 8), (2, 8, 3), (2, 8, 3))))
+    assert K.launches.count == before
+
+
+def test_mamba_entry_points_refuse_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without CUDA")
+    from repro_torch import configs
+    from repro_torch.models import network as N
+    from repro_torch.serving.engine import ContinuousEngine
+    cfg = configs.get("mamba2-2.7b").scaled_down()
+    params = N.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousEngine(cfg, params, slots=2, max_len=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        N.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        N.init_paged_caches(cfg, 2, 8, 16)

@@ -10,7 +10,10 @@ and the plain version sum in different orders), bf16 outputs to 2e-2
 (one bf16 rounding of values of order 1, 2^-7, plus order effects).
 K3 (quant_matmul) writes fp32 for either input type and is held to
 |err| / (1 + |ref|) <= 1e-4.  K4 (limb_gemm) and ``limb_matmul`` are
-integer and held bit-exact (``torch.equal``).
+integer and held bit-exact (``torch.equal``).  K5 (ssd_intra) is held to
+2e-4, the reference kernel test's tolerance, and ``ssd_chunked`` with K5
+inside to a sequential fp64 recurrence within 2e-3, the reference model
+test's tolerance (``tests/test_models.py``).
 """
 
 import dataclasses
@@ -28,8 +31,10 @@ from repro_torch.kernels import mpgemm as TMP
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import quant_matmul as TQM
+from repro_torch.kernels import ssd as TSSD
 from repro_torch.kernels.ref import int_matmul_mod64_ref
 from repro_torch.models import network as TN
+from repro_torch.models import ssm as TS
 from repro_torch.serving.engine import ContinuousEngine, Request
 from _torch_port import cuda  # noqa: F401  (fixture)
 
@@ -240,3 +245,77 @@ def test_multiprecision_entry_point_on_card(cuda, capsys):
     assert multiprecision_gemm.main([]) is True
     assert TLG.launches.count == before + 1
     assert "exact INT32 matmul mod 2^64: True" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("Q", [32, 256])
+def test_ssd_intra_kernel_matches_plain(cuda, Q):
+    """K5 at the engine's default chunk (32) and the published one (256),
+    P = 64, N = 128, dt ~ softplus(N(0, 1)): cums fall by about 200 over
+    256 steps, so every masked exponent above the diagonal overflows."""
+    gen = torch.Generator().manual_seed(Q)
+    G, P, N = 24, 64, 128
+    dt = torch.nn.functional.softplus(torch.randn(G, Q, generator=gen))
+    args = [torch.randn(G, Q, P, generator=gen), dt,
+            torch.cumsum(-dt, dim=1), torch.randn(G, Q, N, generator=gen),
+            torch.randn(G, Q, N, generator=gen)]
+    args = [a.to(cuda) for a in args]
+    before = TSSD.launches.count
+    got = TSSD.ssd_intra(*args)
+    want = TSSD.ssd_intra_ref(*args)
+    torch.cuda.synchronize()
+    assert TSSD.launches.count == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_chunked_matches_recurrence_on_card(cuda):
+    """``ssd_chunked`` (K5 inside) over two chunks of 256 with an initial
+    state, against h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t = C_t h_t
+    stepped one token at a time in fp64."""
+    gen = torch.Generator().manual_seed(1)
+    B, S, H, P, G, N = 1, 512, 8, 64, 1, 128
+    x = torch.randn(B, S, H, P, generator=gen)
+    dt = 0.01 + 0.19 * torch.rand(B, S, H, generator=gen)
+    A = -(0.5 + 1.5 * torch.rand(H, generator=gen))
+    Bm = torch.randn(B, S, G, N, generator=gen)
+    Cm = torch.randn(B, S, G, N, generator=gen)
+    h0 = torch.randn(B, H, P, N, generator=gen)
+    before = TSSD.launches.count
+    y, h = TS.ssd_chunked(*(t.to(cuda) for t in (x, dt, A, Bm, Cm)), 256,
+                          h0.to(cuda))
+    assert TSSD.launches.count == before + 1
+    hr, ys = h0.double().to(cuda), []
+    xd, dtd, Ad, Bd, Cd = (t.double().to(cuda) for t in (x, dt, A, Bm, Cm))
+    for t in range(S):
+        hr = hr * torch.exp(dtd[:, t] * Ad)[:, :, None, None] + torch.einsum(
+            "bhp,bn->bhpn", xd[:, t] * dtd[:, t, :, None], Bd[:, t, 0])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cd[:, t, 0], hr))
+    torch.testing.assert_close(y.double(), torch.stack(ys, 1), rtol=2e-3,
+                               atol=2e-3)
+    torch.testing.assert_close(h.double(), hr, rtol=2e-3, atol=2e-3)
+
+
+def test_mamba_engine_backends_agree_on_card(cuda):
+    """Scaled-down fp32 mamba2 at prefill_chunk 32 and 64: greedy tokens
+    identical under both backends, K5 launched once a layer a chunk step
+    and never in decode, K2 only under scheduled."""
+    base = TC.get("mamba2_2_7b").scaled_down()
+    params = TN.init(base, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(3, base.vocab, int(n)).astype(np.int32),
+                    8, eos=-1) for i, n in enumerate((5, 40, 70, 33))]
+    for chunk in (32, 64):
+        tokens = {}
+        for backend in ("xla", "scheduled"):
+            cfg = dataclasses.replace(base, gemm_backend=backend)
+            eng = ContinuousEngine(cfg, params, slots=2, max_len=128,
+                                   prefill_chunk=chunk, audit=True,
+                                   device=cuda)
+            TSSD.launches.reset()
+            TMP.reset_launches()
+            res = eng.run(reqs)
+            assert all(r.status == "ok" and len(r.tokens) == 8 for r in res)
+            assert TSSD.launches.count == base.n_layers * eng.chunk_steps
+            assert (TMP.launches.count > 0) == (backend == "scheduled")
+            tokens[backend] = {r.rid: r.tokens.tolist() for r in res}
+        assert tokens["xla"] == tokens["scheduled"]
