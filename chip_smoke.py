@@ -86,6 +86,33 @@ The Mamba2 (SSD) path adds, after K4:
   G = 640, Q = 32 and 256, and phase 8 profiles a full-width mamba2
   decode step and prefill chunk step under both backends.
 
+The spill epilogue (K6, the partial-plane baseline of the scheduled GEMM)
+adds, after K5:
+
+  k6_vs_plain: K6 (``mpgemm_spill``) plane by plane against its plain
+  version within rtol = atol = 1e-4 (fp32 planes): WS and IS at folds 1
+  and 3 (ignored: one plane a K block), OS at folds 2 and 3, every tile,
+  bk in {32, 64, 128}, fp32 and bf16, a ragged K (763: 24, 12 and 6 K
+  blocks); a transposed B; every dispatch of ``spill_path`` (bf16, the
+  tiles ``ops.plan_blocks`` picks); two runs of K6 and of the whole spill
+  ``ops.matmul`` bit-equal; and OS whose fold degrades to 1 launching K2,
+  not K6.  After limb_path:
+
+  spill_path: the six GEMM shapes full-width qwen2-0.5b registers in
+  ``ContinuousEngine._register_gemms`` (q, k/v, o, gate/up, down, head),
+  bf16, at M = 8 (decode, 8 slots) and M = 256 (8 slots x the engine's
+  default ``prefill_chunk`` 32), each through ``ops.matmul`` under OS
+  ``k_fold=2``, WS and IS with ``epilogue="fused"`` and ``"spill"``
+  (fp32 out): spill against fused and both against an fp64 product
+  (|diff| / (1 + |ref|) <= 1e-4: bf16 products are exact in fp32, so only
+  the order of the fp32 sums differs), the plane bytes of
+  ``dispatch_plan`` against the ``max_memory_allocated`` rise over the
+  call (spill >= the planes, fused <= the output + 1 MiB), K6 launched
+  once per spill dispatch and never for fused, then each dispatch timed.
+  Phase 7 times K6, its reduction, the whole spill matmul, the fused one,
+  the plain version and ``torch.matmul`` at the down projection (256,
+  896, 4864).
+
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
@@ -96,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -121,6 +149,9 @@ K4_SOURCE = "src/repro_torch/kernels/csrc/limb_gemm.cu"
 K4_REPLACES = "src/repro/kernels/limb_gemm.py:61"
 K5_SOURCE = "src/repro_torch/kernels/csrc/ssd_intra.cu"
 K5_REPLACES = "src/repro/kernels/ssd.py:52"
+# K6 lives in K2's source; it replaces _partial_kernel (:148) and
+# _os_fold_spill_kernel (:157)
+K6_REPLACES = "src/repro/kernels/mpgemm.py:148"
 
 
 def smi_line() -> str:
@@ -141,7 +172,8 @@ class Smoke:
         self.report: dict = {"phases": {}}
         self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0,
                      "paged_decode_int8": 0.0, "quant_matmul": 0.0,
-                     "limb_gemm": 0.0, "ssd_intra": 0.0}
+                     "limb_gemm": 0.0, "ssd_intra": 0.0,
+                     "mpgemm_spill": 0.0}
 
     def phase(self, name: str, fn) -> None:
         print(f"== {name}", flush=True)
@@ -215,6 +247,7 @@ def main(argv=None) -> int:
     from repro_torch.core.pgemm import PGEMM, split_paths
     from repro_torch.core.precision import INT16, INT32
     from repro_torch.core.scheduler import GTAConfig, ScheduleCache, explore
+    from repro_torch.core.tiling import KERNEL_TILES
     from repro_torch.kernels import _build
     from repro_torch.kernels import accumulator as ACC
     from repro_torch.kernels import limb_gemm as LG
@@ -594,6 +627,97 @@ def main(argv=None) -> int:
             raise AssertionError("ssd_chunked disagrees with the sequential "
                                  "recurrence")
 
+    # -- 4e. K6 (the spill epilogue) against its plain version -------------
+    def spill_shapes():
+        """(name, N, K) of the GEMMs ``ContinuousEngine._register_gemms``
+        resolves for full-width qwen2-0.5b (the head's b is the (V, D)
+        table's transposed view, as in the model)."""
+        d, hd = full.d_model, full.hd
+        return [("q", full.n_heads * hd, d), ("k/v", full.n_kv_heads * hd, d),
+                ("o", d, full.n_heads * hd), ("gate/up", full.d_ff, d),
+                ("down", d, full.d_ff), ("head", full.vocab, d)]
+
+    spill_variants = (("OS k_fold=2", Dataflow.OS, 2), ("WS", Dataflow.WS, 1),
+                      ("IS", Dataflow.IS, 1))
+
+    def p_k6():
+        rows = []
+
+        def check(label, a, b, df, bm, bn, bk, fold):
+            got = MP.mpgemm_spill(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                                  k_fold=fold)
+            want = MP.mpgemm_spill_plain(a, b, dataflow=df, bk=bk,
+                                         k_fold=fold)
+            torch.cuda.synchronize()
+            planes = MP.spill_planes(a.shape[1], bk, df, fold)
+            err = (got - want).abs().max().item()
+            sm.kerr["mpgemm_spill"] = max(sm.kerr["mpgemm_spill"], err)
+            rows.append({"case": label, "M": a.shape[0], "N": b.shape[1],
+                         "K": a.shape[1], "dataflow": df.value,
+                         "blocks": [bm, bn, bk], "fold": fold,
+                         "planes": planes, "max_abs_err": err,
+                         "ok": got.shape == want.shape == (
+                             planes, a.shape[0], b.shape[1])
+                         and bool(torch.allclose(got, want, rtol=1e-4,
+                                                 atol=1e-4))})
+            return got
+
+        M, N_, K_ = 100, 150, 763          # 24, 12 and 6 K blocks: ragged
+        variants = [(Dataflow.WS, 1), (Dataflow.WS, 3), (Dataflow.IS, 1),
+                    (Dataflow.IS, 3), (Dataflow.OS, 2), (Dataflow.OS, 3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = gemm_inputs(M, N_, K_, dtype, 61)
+            for (df, fold), (bm, bn), bk in itertools.product(
+                    variants, KERNEL_TILES, (32, 64, 128)):
+                check(f"ragged {str(dtype)[6:]}", a, b, df, bm, bn, bk, fold)
+            bt = b.t().contiguous().t()
+            for df, fold in variants[::2]:
+                check(f"transposed B {str(dtype)[6:]}", a, bt, df, 16, 64,
+                      64, fold)
+        # every spill dispatch of spill_path, at its tile
+        for M in (8, 256):
+            for name, N_, K_ in spill_shapes():
+                a, b = gemm_inputs(M, N_, K_, torch.bfloat16, M + N_ + K_)
+                for label, df, fold in spill_variants:
+                    bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, fold)
+                    check(f"path {name} {label}", a, b, df, bm, bn, bk,
+                          MP.effective_fold(K_, bk, fold))
+        # bit-equal repeats, of K6 and of the whole spill matmul
+        a, b = gemm_inputs(256, 896, 4864, torch.bfloat16, 62)
+        same = {}
+        for label, df, fold in spill_variants:
+            kw = dict(dataflow=df, k_fold=fold, epilogue="spill")
+            bm, bn, bk = OPS.plan_blocks(256, 896, 4864, 2, df, fold)
+            p1, p2 = (MP.mpgemm_spill(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                                      k_fold=fold) for _ in range(2))
+            same[label] = bool(torch.equal(p1, p2)) and bool(torch.equal(
+                OPS.matmul(a, b, **kw), OPS.matmul(a, b, **kw)))
+        # OS whose fold degrades to 1 (3 K blocks) is the fused kernel
+        a, b = gemm_inputs(64, 256, 384, torch.float32, 63)
+        MP.reset_launches()
+        one = MP.mpgemm(a, b, dataflow=Dataflow.OS, bm=16, bn=64, bk=128,
+                        k_fold=2, epilogue="spill")
+        torch.cuda.synchronize()
+        os1 = {"k2": MP.launches.count, "k6": MP.spill_launches.count,
+               "equal_to_fused": bool(torch.equal(one, MP.mpgemm(
+                   a, b, dataflow=Dataflow.OS, bm=16, bn=64, bk=128,
+                   k_fold=2)))}
+        rep["k6_check"] = {"cases": rows, "bit_equal_repeats": same,
+                           "os_fold_1": os1}
+        bad = [(r["case"], r["dataflow"], r["blocks"], r["fold"])
+               for r in rows if not r["ok"]]
+        print(f"K6: {len(rows) - len(bad)}/{len(rows)} cases within rtol = "
+              f"atol = 1e-4 of the plain version, plane by plane (max "
+              f"|err| {sm.kerr['mpgemm_spill']:.3e}); repeats bit-equal: "
+              f"{same}; OS with fold 2 -> 1 under spill: {os1}")
+        if bad:
+            raise AssertionError(f"K6 mismatches: {bad[:3]}")
+        if not all(same.values()):
+            raise AssertionError(f"K6 or the spill matmul not bit-equal "
+                                 f"across two runs: {same}")
+        if os1 != {"k2": 1, "k6": 0, "equal_to_fused": True}:
+            raise AssertionError(f"OS at fold 1 under spill: {os1}")
+
     # -- 5. the main path ---------------------------------------------------
     def requests(rng, n, lo, hi, new, vocab, prefix=0):
         pre = rng.integers(3, vocab, prefix).astype(np.int32)
@@ -622,6 +746,7 @@ def main(argv=None) -> int:
         counts = {"paged_decode": PA.launches.count,
                   "mpgemm": MP.launches.count,
                   "mpgemm_by_dataflow": dict(MP.launches_by_dataflow),
+                  "mpgemm_spill": MP.spill_launches.count,
                   "paged_decode_int8": PA.launches_int8.count,
                   "quant_matmul": QM.launches.count,
                   "ssd_intra": SSD.launches.count}
@@ -1116,6 +1241,88 @@ def main(argv=None) -> int:
             raise AssertionError(f"K4 launched {launches} times for "
                                  f"{len(ops)} limb_matmul calls")
 
+    # -- 6d. the spill-epilogue GEMM path at full width ---------------------
+    spill_launches: dict = {}
+
+    def p_spill_path():
+        dispatches = []
+        for M in (8, 256):
+            for name, N_, K_ in spill_shapes():
+                a, b = gemm_inputs(M, N_, K_, torch.bfloat16, M + N_ + K_)
+                for label, df, fold in spill_variants:
+                    dispatches.append((M, name, a, b, label, df, fold))
+        torch.cuda.synchronize()
+        MP.reset_launches()
+        rows = []
+        for M, name, a, b, label, df, fold in dispatches:
+            N_, K_ = b.shape[1], a.shape[1]
+            bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, fold)
+            plan = MP.dispatch_plan(M, N_, K_, dataflow=df, bm=bm, bn=bn,
+                                    bk=bk, k_fold=fold, epilogue="spill",
+                                    abytes=2, bbytes=2)
+            outs, rise = {}, {}
+            for ep in ("fused", "spill"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                outs[ep] = OPS.matmul(a, b, dataflow=df, k_fold=fold,
+                                      epilogue=ep)
+                torch.cuda.synchronize()
+                rise[ep] = torch.cuda.max_memory_allocated() - base
+            ref = a.double() @ b.double()
+            scale = 1.0 + outs["fused"].abs()
+            rows.append({
+                "M": M, "gemm": name, "N": N_, "K": K_, "variant": label,
+                "blocks": [bm, bn, bk], "k_fold": plan["k_fold_effective"],
+                "planes_bytes": plan["intermediate_hbm_bytes"],
+                "out_bytes": M * N_ * 4,
+                "rise_fused": rise["fused"], "rise_spill": rise["spill"],
+                "spill_vs_fused": ((outs["spill"] - outs["fused"]).abs()
+                                   / scale).max().item(),
+                "fused_vs_fp64": ((outs["fused"].double() - ref).abs()
+                                  / (1 + ref.abs())).max().item(),
+                "spill_vs_fp64": ((outs["spill"].double() - ref).abs()
+                                  / (1 + ref.abs())).max().item()})
+            del outs, ref
+        torch.cuda.synchronize()
+        spill_launches["mpgemm_spill"] = MP.spill_launches.count
+        spill_launches["mpgemm"] = MP.launches.count
+        spill_launches["by_dataflow"] = dict(MP.spill_launches_by_dataflow)
+        want_k6 = sum(r["planes_bytes"] > 0 for r in rows)
+        # then each dispatch timed (launches counted above, not here)
+        for r, (M, name, a, b, label, df, fold) in zip(rows, dispatches):
+            iters = 5 if r["N"] == full.vocab else 20
+            for ep in ("fused", "spill"):
+                r[f"{ep}_ms"] = time_ms(lambda: OPS.matmul(
+                    a, b, dataflow=df, k_fold=fold, epilogue=ep), iters)
+            print(f"[{card}] spill_path ({r['M']}, {r['N']}, {r['K']}) "
+                  f"{r['gemm']} {r['variant']} tile {r['blocks']} f="
+                  f"{r['k_fold']}: planes {r['planes_bytes'] / 1e6:.2f} MB, "
+                  f"memory rise spill {r['rise_spill'] / 1e6:.2f} MB / fused "
+                  f"{r['rise_fused'] / 1e6:.2f} MB (out "
+                  f"{r['out_bytes'] / 1e6:.2f} MB); |spill - fused|/(1+|fused|"
+                  f") {r['spill_vs_fused']:.1e}, vs fp64 {r['spill_vs_fp64']:.1e}"
+                  f" / {r['fused_vs_fp64']:.1e}; {r['spill_ms'] * 1e3:.1f} us "
+                  f"spill, {r['fused_ms'] * 1e3:.1f} us fused")
+        rep["spill_path"] = {"rows": rows, "launches": spill_launches}
+        largest = max(rows, key=lambda r: r["planes_bytes"])
+        print(f"spill_path: {len(rows)} dispatches; largest plane tensor "
+              f"{largest['planes_bytes'] / 1e9:.3f} GB ({largest['gemm']} "
+              f"M={largest['M']} {largest['variant']} bk="
+              f"{largest['blocks'][2]}); launches {spill_launches} (K6 "
+              f"expected {want_k6})")
+        bad = [(r["M"], r["gemm"], r["variant"]) for r in rows
+               if r["spill_vs_fused"] > 1e-4 or r["spill_vs_fp64"] > 1e-4
+               or r["fused_vs_fp64"] > 1e-4
+               or r["rise_spill"] < r["planes_bytes"]
+               or r["rise_fused"] > r["out_bytes"] + (1 << 20)]
+        if bad:
+            raise AssertionError(f"spill_path failed checks: {bad}")
+        if spill_launches["mpgemm_spill"] != want_k6 or want_k6 == 0 or \
+                spill_launches["mpgemm"] != 2 * len(rows) - want_k6:
+            raise AssertionError(f"spill_path launches {spill_launches}, "
+                                 f"expected K6 {want_k6}")
+
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
 
@@ -1366,6 +1573,53 @@ def main(argv=None) -> int:
         timing["ssd_intra"] = dict(rows[1], shape="mamba2 chunk step (G = "
                                    "8 x 80, Q = 256, P = 64, N = 128) fp32")
 
+        # K6 at the down projection at chunk rows, bf16: WS at the path's
+        # tile and at bk = 32, OS at fold 2; the kernel writes the planes,
+        # the reduction (planes.sum) is timed apart; library: one
+        # torch.matmul of the same product
+        M_, N_, K_ = 256, 896, 4864
+        a, b = gemm_inputs(M_, N_, K_, torch.bfloat16, 13)
+        lib = time_ms(lambda: torch.matmul(a, b), 50, flush)
+        rows = []
+        for label, df, fold, bk_ in (("WS", Dataflow.WS, 1, None),
+                                     ("WS bk=32", Dataflow.WS, 1, 32),
+                                     ("OS k_fold=2", Dataflow.OS, 2, None)):
+            bm, bn, bk = OPS.plan_blocks(M_, N_, K_, 2, df, fold)
+            bk = bk_ or bk
+            kw = dict(dataflow=df, bm=bm, bn=bn, bk=bk,
+                      k_fold=MP.effective_fold(K_, bk, fold))
+            planes = MP.mpgemm_spill(a, b, **kw)
+            kern = time_ms(lambda: MP.mpgemm_spill(a, b, **kw), 50, flush)
+            red = time_ms(lambda: planes.sum(0), 50, flush)
+            whole = time_ms(lambda: MP.mpgemm(a, b, epilogue="spill", **kw),
+                            30, flush)
+            fused = time_ms(lambda: MP.mpgemm(a, b, **kw), 30, flush)
+            plain = time_ms(lambda: MP.mpgemm_spill_plain(
+                a, b, dataflow=df, bk=bk, k_fold=kw["k_fold"]), 10, flush,
+                20_000_000)
+            nbytes = 2 * (M_ * K_ + K_ * N_) + planes.numel() * 4
+            b_ms, b_by = bound_ms(nbytes, 2 * M_ * N_ * K_, "bfloat16")
+            rows.append({"M": M_, "N": N_, "K": K_, "variant": label,
+                         "blocks": [bm, bn, bk], "k_fold": kw["k_fold"],
+                         "planes": planes.shape[0],
+                         "planes_bytes": planes.numel() * 4, "ms": kern,
+                         "reduction_ms": red, "spill_matmul_ms": whole,
+                         "fused_ms": fused, "plain_ms": plain,
+                         "library_ms": lib, "library": "torch.matmul (bf16)",
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"K6 bf16 ({M_}, {N_}, {K_}) {label} tile {bm}x{bn}x{bk}, "
+                  f"{planes.shape[0]} planes ({planes.numel() * 4 / 1e6:.1f} "
+                  f"MB): kernel {kern * 1e3:.1f} us, reduction "
+                  f"{red * 1e3:.1f} us, spill matmul {whole * 1e3:.1f} us, "
+                  f"fused (K2) {fused * 1e3:.1f} us, plain {plain * 1e3:.1f}"
+                  f" us, torch.matmul {lib * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.1f} us ({b_by})")
+            del planes
+        timing["mpgemm_spill_shapes"] = rows
+        timing["mpgemm_spill"] = dict(rows[0], shape="down projection at "
+                                      "chunk rows (256, 896, 4864) bf16, WS "
+                                      "-> fp32 planes")
+
     # -- 8. where one step's time goes --------------------------------------
     def p_profile():
         from torch.autograd import DeviceType
@@ -1451,12 +1705,13 @@ def main(argv=None) -> int:
               ("k1_vs_plain", p_k1), ("k1_int8_vs_plain", p_k1_int8),
               ("k2_vs_plain", p_k2), ("k3_vs_plain", p_k3),
               ("k4_vs_plain", p_k4), ("k5_vs_plain", p_k5),
+              ("k6_vs_plain", p_k6),
               ("main_path", p_main), ("quant_main_path", p_quant_main),
               ("mamba2_path", p_mamba),
               ("scaled_down_fp32", p_small),
               ("quant_scaled_down_fp32", p_quant_small),
               ("mamba2_scaled_down_fp32", p_mamba_small),
-              ("limb_path", p_limb_path),
+              ("limb_path", p_limb_path), ("spill_path", p_spill_path),
               ("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
@@ -1469,8 +1724,8 @@ def main(argv=None) -> int:
 
     # launches: each kernel's count in the scheduled run of its main path
     # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3, the
-    # mamba2 run for K5 (each backend's counts are in the report) -- and
-    # K4's in limb_path
+    # mamba2 run for K5 (each backend's counts are in the report) -- K4's
+    # in limb_path and K6's in spill_path
     kernels = []
     fp_run = main_launches.get("scheduled", {})
     int8_run = quant_launches.get("scheduled", {})
@@ -1481,7 +1736,8 @@ def main(argv=None) -> int:
             ("quant_matmul", K3_SOURCE, K3_REPLACES, int8_run),
             ("limb_gemm", K4_SOURCE, K4_REPLACES, limb_launches),
             ("ssd_intra", K5_SOURCE, K5_REPLACES,
-             mamba_launches.get("scheduled", {}))):
+             mamba_launches.get("scheduled", {})),
+            ("mpgemm_spill", K2_SOURCE, K6_REPLACES, spill_launches)):
         t = timing.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": counts.get(name, 0),

@@ -1,8 +1,11 @@
 // Dataflow-scheduled GEMM for Hopper (sm_90a): C = A . B, fp32 accumulate.
 //
-// Replaces the Pallas kernel repro/kernels/mpgemm.py: mpgemm with the fused
-// epilogue -- _os_kernel (OS), _os_fold_fused_kernel (OS with k_fold) and
-// _ws_is_fused_kernel (WS and IS).
+// Replaces the Pallas kernels of repro/kernels/mpgemm.py: mpgemm with the
+// fused epilogue (K2) -- _os_kernel (OS), _os_fold_fused_kernel (OS with
+// k_fold) and _ws_is_fused_kernel (WS and IS) -- and with the spill
+// epilogue (K6) -- _partial_kernel (WS and IS) and _os_fold_spill_kernel
+// (OS with k_fold), the partial-plane baseline the fused epilogue is
+// measured against (see "Spill epilogue" below).
 //
 // What it computes: A (M, K) times B (K, N), both in T (float or bf16)
 // with arbitrary strides, summed in fp32 over K blocks of bk elements that
@@ -39,6 +42,23 @@
 // head (M = 8, N = 151936) under IS.  fp32 stays true fp32 (FMA on CUDA
 // cores, never TF32).  Tensor cores (wgmma), TMA and warp specialisation
 // are later work.
+//
+// Spill epilogue (K6, mpgemm_spill_launch): the same kernels, instantiated
+// with kSpill, store partial tiles into an fp32 plane tensor P (planes, M,
+// N) instead of reducing them; the caller sums the planes afterwards.
+//   WS/IS: one plane per K block (planes = ceil(K / bk); the fold is
+//       ignored, as in the reference).  Where the fused kernel adds a
+//       (k, tile) partial into C, the spill kernel stores it into plane k:
+//       a plain store, no read-modify-write and no zero fill, and every
+//       (k, m-tile, n-tile) of every plane has exactly one owner CTA.
+//   OS with f > 1 bands: the bands are independent, so they go on the
+//       grid, (gn, gm, f): one CTA per (tile, band) accumulates its band's
+//       ceil(K / bk) / f steps in registers and stores plane fi.
+// What bounds it: bytes.  Every plane is written once, planes x M x N x 4
+// bytes (the down projection at 256 rows under WS, bk = 32: 152 planes,
+// 139 MB, about 42 us at 3.35 TB/s, against 2.2 GFLOP of products), and
+// the reduction reads them back.  Plane offsets are 64-bit: planes x M x
+// N passes 2^31 at the LM head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,30 +166,11 @@ __device__ __forceinline__ void accumulate(float* C, int M, int N, int m0,
   }
 }
 
-// OS: grid (gn, gm); output C (M, N) in TO, contiguous.
-template <typename T, typename TO, int BM, int BN>
-__global__ void __launch_bounds__(kThreads)
-mpgemm_os(const T* __restrict__ A, long sam, long sak,
-          const T* __restrict__ B, long sbk, long sbn, TO* __restrict__ C,
-          int M, int N, int K, int bk, int f) {
-  __shared__ float As[BM * (kStep + 1)];
-  __shared__ float Bs[kStep * (BN + 1)];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int gkf = (K + bk - 1) / bk / f;
-  float acc[BM / 16][BN / 16];
-  zero<BM, BN>(acc);
-  for (int fi = 0; fi < f; ++fi) {
-    for (int k = 0; k < gkf; ++k) {
-      const int kb = (fi * gkf + k) * bk;
-      for (int s = 0; s < bk; s += kStep) {
-        stage(As, kStep + 1, A, sam, sak, m0, kb + s, BM, kStep, M, K);
-        stage(Bs, BN + 1, B, sbk, sbn, kb + s, n0, kStep, BN, K, N);
-        __syncthreads();
-        fma_tile<BM, BN>(acc, As, kStep + 1, Bs, BN + 1, kStep);
-        __syncthreads();
-      }
-    }
-  }
+// Store a tile into C (M, N) in TO, contiguous (no read: OS's flush and
+// every store of the spill epilogue).
+template <typename TO, int BM, int BN>
+__device__ __forceinline__ void store_tile(TO* C, int M, int N, int m0, int n0,
+                                           const float (&acc)[BM / 16][BN / 16]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < BM / 16; ++i) {
@@ -182,9 +183,51 @@ mpgemm_os(const T* __restrict__ A, long sam, long sak,
   }
 }
 
+// OS: grid (gn, gm); output C (M, N) in TO, contiguous.  With kSpill
+// (grid (gn, gm, f)) the CTA walks only band blockIdx.z and stores it into
+// plane blockIdx.z of C (f, M, N), fp32.
+template <typename T, typename TO, int BM, int BN, bool kSpill>
+__global__ void __launch_bounds__(kThreads)
+mpgemm_os(const T* __restrict__ A, long sam, long sak,
+          const T* __restrict__ B, long sbk, long sbn, TO* __restrict__ C,
+          int M, int N, int K, int bk, int f) {
+  __shared__ float As[BM * (kStep + 1)];
+  __shared__ float Bs[kStep * (BN + 1)];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int gkf = (K + bk - 1) / bk / f;
+  const int f0 = kSpill ? blockIdx.z : 0, f1 = kSpill ? f0 + 1 : f;
+  float acc[BM / 16][BN / 16];
+  zero<BM, BN>(acc);
+  for (int fi = f0; fi < f1; ++fi) {
+    for (int k = 0; k < gkf; ++k) {
+      const int kb = (fi * gkf + k) * bk;
+      for (int s = 0; s < bk; s += kStep) {
+        stage(As, kStep + 1, A, sam, sak, m0, kb + s, BM, kStep, M, K);
+        stage(Bs, BN + 1, B, sbk, sbn, kb + s, n0, kStep, BN, K, N);
+        __syncthreads();
+        fma_tile<BM, BN>(acc, As, kStep + 1, Bs, BN + 1, kStep);
+        __syncthreads();
+      }
+    }
+  }
+  store_tile<TO, BM, BN>(C + (kSpill ? (long)f0 * M * N : 0L), M, N, m0, n0,
+                         acc);
+}
+
+// Hand a (k, tile) partial to the output: added into C (M, N) (stored on
+// the first visit), or with kSpill stored into plane kg of C (gk, M, N).
+template <int BM, int BN, bool kSpill>
+__device__ __forceinline__ void emit(float* C, int M, int N, int m0, int n0,
+                                     int kg, const float (&acc)[BM / 16][BN / 16]) {
+  if constexpr (kSpill)
+    store_tile<float, BM, BN>(C + (long)kg * M * N, M, N, m0, n0, acc);
+  else
+    accumulate<BM, BN>(C, M, N, m0, n0, kg == 0, acc);
+}
+
 // WS: grid (gn, chunks); each CTA owns one column of B tiles and `per`
-// consecutive M tiles.  Output C (M, N) fp32.
-template <typename T, int BM, int BN>
+// consecutive M tiles.  Output C (M, N) fp32, or planes with kSpill.
+template <typename T, int BM, int BN, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 mpgemm_ws(const T* __restrict__ A, long sam, long sak,
           const T* __restrict__ B, long sbk, long sbn, float* C, int M,
@@ -200,8 +243,7 @@ mpgemm_ws(const T* __restrict__ A, long sam, long sak,
   float acc[BM / 16][BN / 16];
   for (int fi = 0; fi < f; ++fi) {
     for (int k = 0; k < gkf; ++k) {
-      const int kb = (fi * gkf + k) * bk;
-      const bool first = fi == 0 && k == 0;
+      const int kg = fi * gkf + k, kb = kg * bk;
       stage(Bs, BN + 1, B, sbk, sbn, kb, n0, bk, BN, K, N);
       __syncthreads();
       for (int mt = t0; mt < t1; ++mt) {
@@ -213,15 +255,15 @@ mpgemm_ws(const T* __restrict__ A, long sam, long sak,
                            kStep);
           __syncthreads();
         }
-        accumulate<BM, BN>(C, M, N, mt * BM, n0, first, acc);
+        emit<BM, BN, kSpill>(C, M, N, mt * BM, n0, kg, acc);
       }
     }
   }
 }
 
 // IS: grid (gm, chunks); each CTA owns one row of A tiles and `per`
-// consecutive N tiles.  Output C (M, N) fp32.
-template <typename T, int BM, int BN>
+// consecutive N tiles.  Output C (M, N) fp32, or planes with kSpill.
+template <typename T, int BM, int BN, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 mpgemm_is(const T* __restrict__ A, long sam, long sak,
           const T* __restrict__ B, long sbk, long sbn, float* C, int M,
@@ -237,8 +279,7 @@ mpgemm_is(const T* __restrict__ A, long sam, long sak,
   float acc[BM / 16][BN / 16];
   for (int fi = 0; fi < f; ++fi) {
     for (int k = 0; k < gkf; ++k) {
-      const int kb = (fi * gkf + k) * bk;
-      const bool first = fi == 0 && k == 0;
+      const int kg = fi * gkf + k, kb = kg * bk;
       stage(As, bk + 1, A, sam, sak, m0, kb, BM, bk, M, K);
       __syncthreads();
       for (int nt = t0; nt < t1; ++nt) {
@@ -249,7 +290,7 @@ mpgemm_is(const T* __restrict__ A, long sam, long sak,
           fma_tile<BM, BN>(acc, As + s, bk + 1, Bs, BN + 1, kStep);
           __syncthreads();
         }
-        accumulate<BM, BN>(C, M, N, m0, nt * BN, first, acc);
+        emit<BM, BN, kSpill>(C, M, N, m0, nt * BN, kg, acc);
       }
     }
   }
@@ -263,7 +304,9 @@ cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int BM, int BN>
+// With kSpill, C is the fp32 plane tensor: (f, M, N) for OS, (gk, M, N)
+// for WS/IS (which the caller launches with f = 1).
+template <typename T, int BM, int BN, bool kSpill>
 int launch(int dataflow, int out_f32, const void* A, long sam, long sak,
            const void* B, long sbk, long sbn, void* C, int M, int N, int K,
            int bk, int f, int per, cudaStream_t st) {
@@ -271,46 +314,58 @@ int launch(int dataflow, int out_f32, const void* A, long sam, long sak,
   const T* b = static_cast<const T*>(B);
   const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
   if (dataflow == 0) {
-    const dim3 grid(gn, gm);
-    if (out_f32) {
-      mpgemm_os<T, float, BM, BN><<<grid, kThreads, 0, st>>>(
+    const dim3 grid(gn, gm, kSpill ? f : 1);
+    if (out_f32 || kSpill) {
+      mpgemm_os<T, float, BM, BN, kSpill><<<grid, kThreads, 0, st>>>(
           a, sam, sak, b, sbk, sbn, static_cast<float*>(C), M, N, K, bk, f);
     } else {
-      mpgemm_os<T, T, BM, BN><<<grid, kThreads, 0, st>>>(
+      mpgemm_os<T, T, BM, BN, false><<<grid, kThreads, 0, st>>>(
           a, sam, sak, b, sbk, sbn, static_cast<T*>(C), M, N, K, bk, f);
     }
   } else if (dataflow == 1) {
     const size_t smem =
         sizeof(float) * ((size_t)bk * (BN + 1) + (size_t)BM * (kStep + 1));
-    const cudaError_t e = allow_smem(&mpgemm_ws<T, BM, BN>, smem);
+    const cudaError_t e = allow_smem(&mpgemm_ws<T, BM, BN, kSpill>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(gn, (gm + per - 1) / per);
-    mpgemm_ws<T, BM, BN><<<grid, kThreads, smem, st>>>(
+    mpgemm_ws<T, BM, BN, kSpill><<<grid, kThreads, smem, st>>>(
         a, sam, sak, b, sbk, sbn, static_cast<float*>(C), M, N, K, bk, f,
         per);
   } else {
     const size_t smem =
         sizeof(float) * ((size_t)BM * (bk + 1) + (size_t)kStep * (BN + 1));
-    const cudaError_t e = allow_smem(&mpgemm_is<T, BM, BN>, smem);
+    const cudaError_t e = allow_smem(&mpgemm_is<T, BM, BN, kSpill>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(gm, (gn + per - 1) / per);
-    mpgemm_is<T, BM, BN><<<grid, kThreads, smem, st>>>(
+    mpgemm_is<T, BM, BN, kSpill><<<grid, kThreads, smem, st>>>(
         a, sam, sak, b, sbk, sbn, static_cast<float*>(C), M, N, K, bk, f,
         per);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN>
-int launch_dtype(int dtype, int dataflow, int out_f32, const void* A,
-                 long sam, long sak, const void* B, long sbk, long sbn,
-                 void* C, int M, int N, int K, int bk, int f, int per,
-                 cudaStream_t st) {
-  if (dtype == 0)
-    return launch<float, BM, BN>(dataflow, out_f32, A, sam, sak, B, sbk, sbn,
-                                 C, M, N, K, bk, f, per, st);
-  return launch<__nv_bfloat16, BM, BN>(dataflow, out_f32, A, sam, sak, B,
-                                       sbk, sbn, C, M, N, K, bk, f, per, st);
+template <bool kSpill>
+int launch_tile(int bm, int bn, int dtype, int dataflow, int out_f32,
+                const void* A, long sam, long sak, const void* B, long sbk,
+                long sbn, void* C, int M, int N, int K, int bk, int f,
+                int per, cudaStream_t st) {
+  if (bk % kStep != 0 || f < 1 || ((K + bk - 1) / bk) % f != 0 || per < 1 ||
+      dataflow < 0 || dataflow > 2 || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define MPGEMM_TILE(BM, BN)                                                   \
+  if (bm == BM && bn == BN)                                                   \
+    return dtype == 0                                                         \
+               ? launch<float, BM, BN, kSpill>(dataflow, out_f32, A, sam, sak,  \
+                                               B, sbk, sbn, C, M, N, K, bk,    \
+                                               f, per, st)                     \
+               : launch<__nv_bfloat16, BM, BN, kSpill>(                        \
+                     dataflow, out_f32, A, sam, sak, B, sbk, sbn, C, M, N, K,  \
+                     bk, f, per, st);
+  MPGEMM_TILE(16, 64)
+  MPGEMM_TILE(64, 64)
+  MPGEMM_TILE(128, 128)
+#undef MPGEMM_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -325,17 +380,20 @@ extern "C" int mpgemm_launch(int dataflow, int dtype, int out_f32, int bm,
                              const void* B, long sbk, long sbn, void* C,
                              int M, int N, int K, int bk, int f, int per,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bk % kStep != 0 || f < 1 || ((K + bk - 1) / bk) % f != 0 || per < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bm == 16 && bn == 64)
-    return launch_dtype<16, 64>(dtype, dataflow, out_f32, A, sam, sak, B, sbk,
-                                sbn, C, M, N, K, bk, f, per, st);
-  if (bm == 64 && bn == 64)
-    return launch_dtype<64, 64>(dtype, dataflow, out_f32, A, sam, sak, B, sbk,
-                                sbn, C, M, N, K, bk, f, per, st);
-  if (bm == 128 && bn == 128)
-    return launch_dtype<128, 128>(dtype, dataflow, out_f32, A, sam, sak, B,
-                                  sbk, sbn, C, M, N, K, bk, f, per, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tile<false>(bm, bn, dtype, dataflow, out_f32, A, sam, sak, B,
+                            sbk, sbn, C, M, N, K, bk, f, per,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The spill epilogue (K6): P is the fp32 plane tensor, (f, M, N) for OS
+// (f must divide ceil(K / bk)) and (ceil(K / bk), M, N) for WS and IS,
+// which ignore f.  Other arguments as mpgemm_launch.
+extern "C" int mpgemm_spill_launch(int dataflow, int dtype, int bm, int bn,
+                                   const void* A, long sam, long sak,
+                                   const void* B, long sbk, long sbn, void* P,
+                                   int M, int N, int K, int bk, int f,
+                                   int per, void* stream) {
+  return launch_tile<true>(bm, bn, dtype, dataflow, 1, A, sam, sak, B, sbk,
+                           sbn, P, M, N, K, bk, dataflow == 0 ? f : 1, per,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -10,7 +10,9 @@ recombining them into (hi, lo) int32 pairs modulo 2^64.
 (the paper-§5 exploration, memoized per (M, N, K, precision)), applies the
 cached dataflow and fold to the mpgemm kernel, picks the Hopper tiling
 for that dataflow (``core.tiling``), and records what executed -- the
-effective fold and dataflow -- with ``note_applied``.
+effective fold and dataflow -- with ``note_applied``.  Its ``epilogue``
+selects K2's fused reduction (the default, and the only one
+:class:`GemmBackend` uses) or K6's partial-plane spill baseline.
 
 :class:`GemmBackend` routes model projections (``models.layers.dense``
 and the LM head) through ``matmul`` -- and int8 QuantTensor projections
@@ -103,13 +105,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: torch.dtype = torch.float32,
            blocks: tuple[int, int, int] | None = None,
            k_fold: int | None = None,
-           schedule: ScheduleCache | None = None) -> torch.Tensor:
+           schedule: ScheduleCache | None = None,
+           epilogue: str = "fused") -> torch.Tensor:
     """GEMM through the mpgemm kernel.
 
     With ``schedule`` the cached (dataflow, k_fold) of this shape
     overrides ``dataflow`` (SIMD runs the OS pipeline) and the application
-    is logged with the fold that executed.  ``k_fold`` forces a fold;
-    ``blocks`` forces (bm, bn, bk), else :func:`plan_blocks` picks them."""
+    is logged with the fold and dataflow that executed, whatever the
+    epilogue.  ``k_fold`` forces a fold; ``blocks`` forces (bm, bn, bk),
+    else :func:`plan_blocks` picks them.  ``epilogue="spill"`` runs the
+    partial-plane baseline (K6 and a sum; benchmarks only)."""
     M, K = a.shape
     N = b.shape[1]
     fold_req = k_fold
@@ -130,7 +135,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         bm, bn, bk = blocks
     ef = _mp.effective_fold(K, bk, fold_req)
     out = _mp.mpgemm(a, b, dataflow=dataflow, bm=bm, bn=bn, bk=bk,
-                     k_fold=ef, out_dtype=out_dtype)
+                     k_fold=ef, out_dtype=out_dtype, epilogue=epilogue)
     if schedule is not None:
         # logged after the launch: the applied log lists only GEMMs that
         # really executed

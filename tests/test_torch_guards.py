@@ -93,6 +93,28 @@ def test_kernel_wrappers_never_fall_back():
                   dataflow=Dataflow.IS, bm=16, bn=64, bk=32)
 
 
+def test_spill_kernel_wrapper_never_falls_back():
+    """K6 likewise, called directly, through ``mpgemm(epilogue="spill")``
+    or through ``ops.matmul``: a meta tensor is neither launched nor sent
+    to the plain version."""
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.kernels import mpgemm as MP
+    from repro_torch.kernels import ops as OPS
+    a = torch.zeros(4, 64, device="meta")
+    b = torch.zeros(64, 64, device="meta")
+    MP.reset_launches()
+    for df in (Dataflow.OS, Dataflow.WS, Dataflow.IS):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            MP.mpgemm_spill(a, b, dataflow=df, bm=16, bn=64, bk=32,
+                            k_fold=2)
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            MP.mpgemm(a, b, dataflow=df, bm=16, bn=64, bk=32, k_fold=2,
+                      epilogue="spill")
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            OPS.matmul(a, b, dataflow=df, k_fold=2, epilogue="spill")
+    assert MP.spill_launches.count == 0 and MP.launches.count == 0
+
+
 def test_quant_kernel_wrappers_never_fall_back():
     """K3 and K1-int8 likewise: a meta tensor is neither launched nor sent
     to the plain version."""

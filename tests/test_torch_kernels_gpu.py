@@ -9,7 +9,8 @@ Tolerances: fp32 results to 1e-4 (the reference's GEMM bound; the kernel
 and the plain version sum in different orders), bf16 outputs to 2e-2
 (one bf16 rounding of values of order 1, 2^-7, plus order effects).
 K3 (quant_matmul) writes fp32 for either input type and is held to
-|err| / (1 + |ref|) <= 1e-4.  K4 (limb_gemm) and ``limb_matmul`` are
+|err| / (1 + |ref|) <= 1e-4.  K6 (the spill planes) is held to 1e-4
+plane by plane and to bit equality across two runs.  K4 (limb_gemm) and ``limb_matmul`` are
 integer and held bit-exact (``torch.equal``).  K5 (ssd_intra) is held to
 2e-4, the reference kernel test's tolerance, and ``ssd_chunked`` with K5
 inside to a sequential fp64 recurrence within 2e-3, the reference model
@@ -145,6 +146,61 @@ def test_mpgemm_kernel_matches_plain(cuda, df, dtype):
     torch.testing.assert_close(got, TMP.mpgemm_plain(a, b, bk=32, k_fold=1,
                                                      out_dtype=torch.float32),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("df", [Dataflow.OS, Dataflow.WS, Dataflow.IS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mpgemm_spill_kernel_matches_plain(cuda, df, dtype):
+    """K6 plane by plane against its plain version: every tile, bk 32 to
+    128, folds 1 to 3 on a K whose block count 6 divides at every bk (763:
+    ragged), a transposed operand, and a repeat that must be bit-equal."""
+    gen = torch.Generator().manual_seed(8)
+    a = torch.randn(100, 763, generator=gen).to(cuda, dtype)
+    b = torch.randn(763, 150, generator=gen).to(cuda, dtype)
+    TMP.reset_launches()
+    launched = 0
+    for (bm, bn), bk, f in itertools.product(tiling.KERNEL_TILES,
+                                             (32, 64, 128), (1, 2, 3)):
+        got = TMP.mpgemm_spill(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                               k_fold=f)
+        want = TMP.mpgemm_spill_plain(a, b, dataflow=df, bk=bk, k_fold=f)
+        torch.cuda.synchronize()
+        launched += 1
+        assert got.shape == want.shape == (
+            TMP.spill_planes(763, bk, df, f), 100, 150)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    bt = b.t().contiguous().t()
+    got = TMP.mpgemm_spill(a, bt, dataflow=df, bm=16, bn=64, bk=64, k_fold=2)
+    again = TMP.mpgemm_spill(a, bt, dataflow=df, bm=16, bn=64, bk=64,
+                             k_fold=2)
+    torch.testing.assert_close(got, TMP.mpgemm_spill_plain(
+        a, b, dataflow=df, bk=64, k_fold=2), rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+    assert TMP.spill_launches.count == launched + 2
+    assert TMP.launches.count == 0
+
+
+@pytest.mark.parametrize("df", [Dataflow.OS, Dataflow.WS, Dataflow.IS])
+def test_spill_matmul_matches_fused_on_card(cuda, df):
+    """``ops.matmul(epilogue="spill")`` equals the fused path within 1e-4
+    (the reference's GEMM bound: K2 sums the bands in registers, the spill
+    path sums them with a torch reduction, and with N(0, 1) operands the
+    two fp32 orders differ by up to 3e-5); OS with an effective fold of 1
+    launches K2 and no K6, as the reference dispatches it."""
+    gen = torch.Generator().manual_seed(2)
+    a = torch.randn(64, 384, generator=gen).to(cuda)
+    b = torch.randn(384, 256, generator=gen).to(cuda)
+    fused = TOPS.matmul(a, b, dataflow=df, k_fold=3)
+    TMP.reset_launches()
+    spill = TOPS.matmul(a, b, dataflow=df, k_fold=3, epilogue="spill")
+    torch.testing.assert_close(spill, fused, rtol=1e-4, atol=1e-4)
+    assert (TMP.spill_launches.count, TMP.launches.count) == (1, 0)
+    TMP.reset_launches()
+    one = TOPS.matmul(a, b, dataflow=df, blocks=(16, 64, 128), k_fold=2,
+                      epilogue="spill")                   # gk 3: f 2 -> 1
+    torch.testing.assert_close(one, fused, rtol=1e-4, atol=1e-4)
+    want = (0, 1) if df is Dataflow.OS else (1, 0)
+    assert (TMP.spill_launches.count, TMP.launches.count) == want
 
 
 def test_engine_backends_agree_on_card(cuda):
