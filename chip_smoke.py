@@ -12,7 +12,13 @@ Phases, in order (each failure is reported and the script exits 1):
      block boundary and a full table, NULL-block entries, and one case
      with a window and a softcap, in fp32 and bf16;
   4. K2 mpgemm against its plain version for OS, OS with k_fold 2 and 4,
-     WS and IS at the path's GEMM shapes and one ragged shape, fp32/bf16;
+     WS and IS at the path's GEMM shapes and two ragged shapes (37, 1000,
+     900: TMA refuses it; 37, 1000, 904: TMA takes it), fp32/bf16; on the
+     Hopper route also mamba2's in_proj, out_proj and head at M = 8 and
+     2048 and OS folds 2, 3, 4 and 8 (more bands than cluster ranks at
+     (8, 2560, 3072): 3 ranks); every bf16 case repeated bit-equal, and
+     each case on the route ``mpgemm_route`` names (bf16 TMA can
+     describe: Hopper; fp32 and K = 900: CUDA cores);
   5. the main path: qwen2-0.5b at full width (random weights from
      ``--seed``) served by the paged engine, 8 requests of 64-512 prompt
      tokens and 32 new tokens, under gemm_backend "xla" and "scheduled"
@@ -93,10 +99,12 @@ adds, after K5:
   version within rtol = atol = 1e-4 (fp32 planes): WS and IS at folds 1
   and 3 (ignored: one plane a K block), OS at folds 2 and 3, every tile,
   bk in {32, 64, 128}, fp32 and bf16, a ragged K (763: 24, 12 and 6 K
-  blocks); a transposed B; every dispatch of ``spill_path`` (bf16, the
-  tiles ``ops.plan_blocks`` picks); two runs of K6 and of the whole spill
-  ``ops.matmul`` bit-equal; and OS whose fold degrades to 1 launching K2,
-  not K6.  After limb_path:
+  blocks; the CUDA-core route); a transposed B; every dispatch of
+  ``spill_path`` (bf16, the tiles ``ops.plan_blocks`` picks); on the
+  Hopper route mamba2's GEMMs, (37, 1000, 904) at every Hopper tile and
+  bk 64 and 128, and OS folds 2, 3, 4 and 8; two runs of K6 and of the
+  whole spill ``ops.matmul`` bit-equal; and OS whose fold degrades to 1
+  launching K2, not K6.  After limb_path:
 
   spill_path: the six GEMM shapes full-width qwen2-0.5b registers in
   ``ContinuousEngine._register_gemms`` (q, k/v, o, gate/up, down, head),
@@ -108,10 +116,15 @@ adds, after K5:
   the order of the fp32 sums differs), the plane bytes of
   ``dispatch_plan`` against the ``max_memory_allocated`` rise over the
   call (spill >= the planes, fused <= the output + 1 MiB), K6 launched
-  once per spill dispatch and never for fused, then each dispatch timed.
-  Phase 7 times K6, its reduction, the whole spill matmul, the fused one,
-  the plain version and ``torch.matmul`` at the down projection (256,
-  896, 4864).
+  once per spill dispatch and never for fused, every launch on the
+  Hopper route, then each dispatch timed.  Phase 7 times K6, its
+  reduction, the whole spill matmul, the fused one, the plain version
+  and ``torch.matmul`` at the down projection (256, 896, 4864).
+
+The main paths (phase 5, mamba2_path, spill_path) report K2's launches
+by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
+the CUDA-core route.  Phase 7 times K2 at qwen2's and mamba2's GEMMs
+(M = 8, 256 and 2048) with ``torch.matmul`` beside each.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -247,7 +260,7 @@ def main(argv=None) -> int:
     from repro_torch.core.pgemm import PGEMM, split_paths
     from repro_torch.core.precision import INT16, INT32
     from repro_torch.core.scheduler import GTAConfig, ScheduleCache, explore
-    from repro_torch.core.tiling import KERNEL_TILES
+    from repro_torch.core.tiling import HOPPER_TILES, KERNEL_TILES
     from repro_torch.kernels import _build
     from repro_torch.kernels import accumulator as ACC
     from repro_torch.kernels import limb_gemm as LG
@@ -333,13 +346,16 @@ def main(argv=None) -> int:
     # -- 4. K2 against its plain version ------------------------------------
     path_nk = [(896, 896), (128, 896), (4864, 896), (896, 4864),
                (151936, 896)]
+    # mamba2-2.7b's in_proj, out_proj and tied head (N, K)
+    m2_nk = [(10576, 2560), (2560, 5120), (50280, 2560)]
+    HEADS = (151936, 50280)
 
     def gemm_inputs(M, N, K, dtype, seed):
         # a ~ N(0, 1/K), b ~ N(0, 1): products of order 1, as after RMSNorm
         gen = torch.Generator(device=dev).manual_seed(seed)
         a = (torch.randn(M, K, generator=gen, device=dev) / K ** 0.5
              ).to(dtype)
-        if N == 151936:     # the LM head: the (V, D) table, transposed view
+        if N in HEADS:      # the LM head: the (V, D) table, transposed view
             b = torch.randn(N, K, generator=gen, device=dev).to(dtype).t()
         else:
             b = torch.randn(K, N, generator=gen, device=dev).to(dtype)
@@ -350,43 +366,72 @@ def main(argv=None) -> int:
                     ("OS-fold4", Dataflow.OS, 4), ("WS", Dataflow.WS, 1),
                     ("IS", Dataflow.IS, 1)]
         shapes = [(M, N, K) for M in (8, 256) for N, K in path_nk]
-        shapes.append((37, 1000, 900))              # not a block multiple
+        shapes.append((37, 1000, 900))      # not a block multiple; TMA: no
+        shapes.append((37, 1000, 904))      # ragged, but TMA can take it
+        cases = [(s, d, v) for s in shapes
+                 for d in (torch.float32, torch.bfloat16) for v in variants]
+        # the Hopper route at mamba2's GEMMs (bf16: fp32 takes the CUDA-
+        # core route, unchanged) and OS folds 2, 3, 4, 8 -- more bands
+        # than cluster ranks at (8, 2560, 3072), 40 tiles: 3 ranks, and
+        # at (512, 2048, 3072), 256 tiles: 1 rank
+        cases += [(s, torch.bfloat16, v) for s in
+                  [(M, N, K) for M in (8, 2048) for N, K in m2_nk]
+                  for v in (("OS", Dataflow.OS, 1), ("IS", Dataflow.IS, 1))]
+        cases += [((M, N, 3072), torch.bfloat16, (f"OS-fold{f}",
+                                                  Dataflow.OS, f))
+                  for M, N in ((8, 896), (8, 2560), (512, 2048))
+                  for f in (2, 3, 4, 8)]
         rows, worst = [], {}
-        for (M, N, K), dtype in [(s, d) for s in shapes
-                                 for d in (torch.float32, torch.bfloat16)]:
+        for (M, N, K), dtype, (name, df, fold) in cases:
             a, b = gemm_inputs(M, N, K, dtype, M + N + K)
-            out_dtype = torch.float32 if N == 151936 else dtype
-            for name, df, fold in variants:
-                bm, bn, bk = OPS.plan_blocks(M, N, K, a.element_size(), df,
-                                             fold)
-                ef = MP.effective_fold(K, bk, fold)
-                got = MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
-                                k_fold=ef, out_dtype=out_dtype)
-                want = MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
-                                       out_dtype=out_dtype)
-                torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs()
-                scale = 1.0 + want.float().abs()
-                tol = 1e-4 if out_dtype == torch.float32 else 1e-2
-                rel = (diff / scale).max().item()
-                err = diff.max().item()
-                sm.kerr["mpgemm"] = max(sm.kerr["mpgemm"], err)
-                key = f"{name} {str(dtype)[6:]}"
-                worst[key] = max(worst.get(key, 0.0), rel)
-                rows.append({"M": M, "N": N, "K": K, "variant": name,
-                             "dtype": str(dtype)[6:], "blocks": [bm, bn, bk],
-                             "fold": ef, "max_abs_err": err,
-                             "max_rel_err": rel, "ok": rel <= tol})
+            out_dtype = torch.float32 if N in HEADS else dtype
+            bm, bn, bk = OPS.plan_blocks(M, N, K, a.element_size(), df,
+                                         fold)
+            ef = MP.effective_fold(K, bk, fold)
+            route = MP.mpgemm_route(a, b, bk)
+            got = MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                            k_fold=ef, out_dtype=out_dtype)
+            want = MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
+                                   out_dtype=out_dtype)
+            same = True
+            if dtype == torch.bfloat16:     # a repeat must be bit-equal
+                same = bool(torch.equal(got, MP.mpgemm(
+                    a, b, dataflow=df, bm=bm, bn=bn, bk=bk, k_fold=ef,
+                    out_dtype=out_dtype)))
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            scale = 1.0 + want.float().abs()
+            tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+            rel = (diff / scale).max().item()
+            err = diff.max().item()
+            sm.kerr["mpgemm"] = max(sm.kerr["mpgemm"], err)
+            key = f"{name} {str(dtype)[6:]} {route}"
+            w, n = worst.get(key, (0.0, 0))
+            worst[key] = (max(w, rel), n + 1)
+            rows.append({"M": M, "N": N, "K": K, "variant": name,
+                         "dtype": str(dtype)[6:], "route": route,
+                         "blocks": [bm, bn, bk], "fold": ef,
+                         "max_abs_err": err, "max_rel_err": rel,
+                         "bit_equal_repeat": same,
+                         "ok": rel <= tol and same})
+            del a, b, got, want
         rep["k2_check"] = rows
-        for key, rel in worst.items():
-            print(f"K2 {key}: worst |err|/(1+|ref|) {rel:.3e} over "
-                  f"{len(shapes)} shapes")
+        for key, (rel, n) in worst.items():
+            print(f"K2 {key}: worst |err|/(1+|ref|) {rel:.3e} over {n} "
+                  f"shapes")
         bad = [r for r in rows if not r["ok"]]
+        routes = {r: sum(x["route"] == r for x in rows) for r in MP.ROUTES}
         print(f"K2: {len(rows) - len(bad)}/{len(rows)} cases within "
               f"tolerance (fp32 out 1e-4, bf16 out 1e-2, relative to "
-              f"1 + |ref|)")
+              f"1 + |ref|), bf16 repeats bit-equal; routes {routes}")
         if bad:
             raise AssertionError(f"K2 mismatches: {bad[:3]}")
+        hopper_bf16 = [r for r in rows if r["dtype"] == "bfloat16"
+                       and r["K"] != 900]
+        if any(r["route"] != "hopper" for r in hopper_bf16) or any(
+                r["route"] != "cuda_core" for r in rows
+                if r["dtype"] == "float32" or r["K"] == 900):
+            raise AssertionError("K2: a case took the other route")
 
     # -- 4b. K1-int8 and K3 against their plain versions --------------------
     def int8_kv(shape, seed):
@@ -654,6 +699,7 @@ def main(argv=None) -> int:
             sm.kerr["mpgemm_spill"] = max(sm.kerr["mpgemm_spill"], err)
             rows.append({"case": label, "M": a.shape[0], "N": b.shape[1],
                          "K": a.shape[1], "dataflow": df.value,
+                         "route": MP.mpgemm_route(a, b, bk),
                          "blocks": [bm, bn, bk], "fold": fold,
                          "planes": planes, "max_abs_err": err,
                          "ok": got.shape == want.shape == (
@@ -682,6 +728,27 @@ def main(argv=None) -> int:
                     bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, fold)
                     check(f"path {name} {label}", a, b, df, bm, bn, bk,
                           MP.effective_fold(K_, bk, fold))
+        # the Hopper route: mamba2's GEMMs, a ragged shape TMA can take at
+        # every Hopper tile, OS folds 2, 3, 4, 8 (one band a CTA)
+        for M, (N_, K_) in [(8, nk) for nk in m2_nk] + [(2048, m2_nk[1])]:
+            a, b = gemm_inputs(M, N_, K_, torch.bfloat16, M + N_ + K_)
+            for label, df, fold in spill_variants:
+                if M == 2048 and df is Dataflow.WS:
+                    continue                # IS covers the plane walk
+                bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, fold)
+                check(f"mamba2 {label}", a, b, df, bm, bn, bk,
+                      MP.effective_fold(K_, bk, fold))
+            del a, b
+        a, b = gemm_inputs(37, 1000, 904, torch.bfloat16, 64)
+        for (label, df, fold), (bm, bn), bk in itertools.product(
+                spill_variants, HOPPER_TILES, (64, 128)):
+            check(f"ragged TMA {label}", a, b, df, bm, bn, bk,
+                  MP.effective_fold(904, bk, fold))
+        for M, N_ in ((8, 896), (8, 2560), (512, 2048)):
+            a, b = gemm_inputs(M, N_, 3072, torch.bfloat16, 65)
+            bm, bn = OPS.plan_blocks(M, N_, 3072, 2, Dataflow.OS, 1)[:2]
+            for f in (2, 3, 4, 8):
+                check(f"OS fold {f}", a, b, Dataflow.OS, bm, bn, 128, f)
         # bit-equal repeats, of K6 and of the whole spill matmul
         a, b = gemm_inputs(256, 896, 4864, torch.bfloat16, 62)
         same = {}
@@ -712,6 +779,12 @@ def main(argv=None) -> int:
               f"{same}; OS with fold 2 -> 1 under spill: {os1}")
         if bad:
             raise AssertionError(f"K6 mismatches: {bad[:3]}")
+        wrong = [(r["case"], r["route"]) for r in rows if
+                 (r["route"] == "hopper") != (r["case"].startswith(
+                     ("path", "mamba2", "ragged TMA", "OS fold"))
+                     and r["blocks"][2] % 64 == 0)]
+        if wrong:
+            raise AssertionError(f"K6 cases on the other route: {wrong[:3]}")
         if not all(same.values()):
             raise AssertionError(f"K6 or the spill matmul not bit-equal "
                                  f"across two runs: {same}")
@@ -746,6 +819,7 @@ def main(argv=None) -> int:
         counts = {"paged_decode": PA.launches.count,
                   "mpgemm": MP.launches.count,
                   "mpgemm_by_dataflow": dict(MP.launches_by_dataflow),
+                  "mpgemm_by_route": dict(MP.launches_by_route),
                   "mpgemm_spill": MP.spill_launches.count,
                   "paged_decode_int8": PA.launches_int8.count,
                   "quant_matmul": QM.launches.count,
@@ -866,6 +940,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"a kernel never launched: {main_launches}")
         if main_launches["xla"]["mpgemm"] != 0:
             raise AssertionError("the xla backend launched mpgemm")
+        if main_launches["scheduled"]["mpgemm_by_route"]["cuda_core"]:
+            raise AssertionError(f"a bf16 GEMM took the CUDA-core route: "
+                                 f"{main_launches['scheduled']}")
         if any(c["quant_matmul"] or c["paged_decode_int8"]
                for c in main_launches.values()):
             raise AssertionError(f"the fp model launched an int8 kernel: "
@@ -1028,6 +1105,9 @@ def main(argv=None) -> int:
                     or r["decode_steps"] == 0:
                 raise AssertionError(f"mamba2 {b} launches {got}, expected "
                                      f"{want}")
+            if c["mpgemm_by_route"]["cuda_core"]:
+                raise AssertionError(f"mamba2 {b}: a bf16 GEMM took the "
+                                     f"CUDA-core route: {c}")
         if tuple(lx.shape) != (2, m2.vocab) or not (
                 torch.isfinite(lx).all() and torch.isfinite(ls).all()):
             raise AssertionError("mamba2 logits not finite / bad shape")
@@ -1288,6 +1368,9 @@ def main(argv=None) -> int:
         spill_launches["mpgemm_spill"] = MP.spill_launches.count
         spill_launches["mpgemm"] = MP.launches.count
         spill_launches["by_dataflow"] = dict(MP.spill_launches_by_dataflow)
+        spill_launches["by_route"] = {"mpgemm": dict(MP.launches_by_route),
+                                      "mpgemm_spill": dict(
+                                          MP.spill_launches_by_route)}
         want_k6 = sum(r["planes_bytes"] > 0 for r in rows)
         # then each dispatch timed (launches counted above, not here)
         for r, (M, name, a, b, label, df, fold) in zip(rows, dispatches):
@@ -1322,6 +1405,9 @@ def main(argv=None) -> int:
                 spill_launches["mpgemm"] != 2 * len(rows) - want_k6:
             raise AssertionError(f"spill_path launches {spill_launches}, "
                                  f"expected K6 {want_k6}")
+        if any(by["cuda_core"] for by in spill_launches["by_route"].values()):
+            raise AssertionError(f"spill_path: a bf16 GEMM took the CUDA-"
+                                 f"core route: {spill_launches['by_route']}")
 
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
@@ -1362,15 +1448,18 @@ def main(argv=None) -> int:
         for M in (8, 256):
             shapes += [(M, N_, K_) for N_, K_ in path_nk[:4]]
         shapes.append((8, 151936, 896))      # head rows = slots
+        # mamba2's in_proj, out_proj and head at decode (8 slots) and
+        # chunk rows (8 x 256)
+        shapes += [(M, N_, K_) for M in (8, 2048) for N_, K_ in m2_nk]
         rows = []
         for M, N_, K_ in shapes:
             a, b = gemm_inputs(M, N_, K_, torch.bfloat16, 7)
-            out_dtype = torch.float32 if N_ == 151936 else torch.bfloat16
+            out_dtype = torch.float32 if N_ in HEADS else torch.bfloat16
             choice = sched.resolve(M, N_, K_, "BP16")
             df = choice.dataflow
             bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, choice.k_fold)
             ef = MP.effective_fold(K_, bk, choice.k_fold)
-            iters = 20 if N_ == 151936 else 100
+            iters = 20 if N_ in HEADS or M == 2048 else 100
             kern = time_ms(lambda: MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn,
                                              bk=bk, k_fold=ef,
                                              out_dtype=out_dtype),
@@ -1384,14 +1473,18 @@ def main(argv=None) -> int:
             b_ms, b_by = bound_ms(nbytes, 2 * M * N_ * K_, "bfloat16")
             rows.append({"M": M, "N": N_, "K": K_, "dataflow": df.value,
                          "k_fold": ef, "blocks": [bm, bn, bk],
+                         "route": MP.mpgemm_route(a, b, bk),
                          "ms": kern, "plain_ms": plain, "library_ms": lib,
                          "bound_ms": b_ms, "bound_by": b_by})
+            del a, b
             print(f"K2 bf16 ({M}, {N_}, {K_}) {df.value} f={ef} tile "
-                  f"{bm}x{bn}x{bk}: kernel {kern*1e3:.1f} us, plain "
-                  f"{plain*1e3:.1f} us, torch.matmul {lib*1e3:.1f} us, "
-                  f"bound {b_ms*1e3:.1f} us ({b_by})")
+                  f"{bm}x{bn}x{bk} ({rows[-1]['route']}): kernel "
+                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, "
+                  f"torch.matmul {lib*1e3:.1f} us, bound {b_ms*1e3:.2f} us "
+                  f"({b_by})")
         timing["mpgemm_shapes"] = rows
-        timing["mpgemm"] = dict(rows[-1], shape="head (8, 151936, 896) bf16 "
+        head = next(r for r in rows if (r["M"], r["N"]) == (8, 151936))
+        timing["mpgemm"] = dict(head, shape="head (8, 151936, 896) bf16 "
                                 "-> fp32", library="torch.matmul (bf16)")
 
         # K1-int8: the same decode with int8 pools and fp32 scales; no
@@ -1574,15 +1667,16 @@ def main(argv=None) -> int:
                                    "8 x 80, Q = 256, P = 64, N = 128) fp32")
 
         # K6 at the down projection at chunk rows, bf16: WS at the path's
-        # tile and at bk = 32, OS at fold 2; the kernel writes the planes,
-        # the reduction (planes.sum) is timed apart; library: one
-        # torch.matmul of the same product
+        # tile (bk = 64, 76 planes) and at bk = 128 (38 planes; bk = 32
+        # would take the CUDA-core route), OS at fold 2; the kernel writes
+        # the planes, the reduction (planes.sum) is timed apart; library:
+        # one torch.matmul of the same product
         M_, N_, K_ = 256, 896, 4864
         a, b = gemm_inputs(M_, N_, K_, torch.bfloat16, 13)
         lib = time_ms(lambda: torch.matmul(a, b), 50, flush)
         rows = []
         for label, df, fold, bk_ in (("WS", Dataflow.WS, 1, None),
-                                     ("WS bk=32", Dataflow.WS, 1, 32),
+                                     ("WS bk=128", Dataflow.WS, 1, 128),
                                      ("OS k_fold=2", Dataflow.OS, 2, None)):
             bm, bn, bk = OPS.plan_blocks(M_, N_, K_, 2, df, fold)
             bk = bk_ or bk
@@ -1600,6 +1694,7 @@ def main(argv=None) -> int:
             nbytes = 2 * (M_ * K_ + K_ * N_) + planes.numel() * 4
             b_ms, b_by = bound_ms(nbytes, 2 * M_ * N_ * K_, "bfloat16")
             rows.append({"M": M_, "N": N_, "K": K_, "variant": label,
+                         "route": MP.mpgemm_route(a, b, bk),
                          "blocks": [bm, bn, bk], "k_fold": kw["k_fold"],
                          "planes": planes.shape[0],
                          "planes_bytes": planes.numel() * 4, "ms": kern,

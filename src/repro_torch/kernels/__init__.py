@@ -9,9 +9,13 @@ wrapper of the CUDA source in ``csrc/``; ``accumulator`` recombines K4's
 diagonals; ``ops`` is the GEMM layer over them.  Kernels are built at
 first use (``_build``).
 
-K2's fused epilogue reduces partial sums in the kernel: WS/IS add each
-(K block, tile) product into the fp32 output, OS keeps the accumulator in
-registers across every fold band, so no intermediate tensor exists.
+K2's fused epilogue reduces partial sums in the kernel, so no
+intermediate tensor exists.  bf16 operands TMA can describe take the
+Hopper route (``mpgemm.mpgemm_route``): every CTA keeps its tile's
+accumulator in registers over its K range and writes the output once;
+OS fold bands split over a cluster are summed through distributed shared
+memory.  fp32 and other layouts take the CUDA-core kernels, whose WS/IS
+add each (K block, tile) product into an fp32 output.
 ``epilogue="spill"`` keeps the reference's baseline for benchmarking: K6
 writes a ``(gk, M, N)`` (WS/IS) or ``(f, M, N)`` (OS, fold above 1) fp32
 plane tensor and a sum reduces it; ``mpgemm.dispatch_plan`` and

@@ -5,60 +5,99 @@
 // k_fold) and _ws_is_fused_kernel (WS and IS) -- and with the spill
 // epilogue (K6) -- _partial_kernel (WS and IS) and _os_fold_spill_kernel
 // (OS with k_fold), the partial-plane baseline the fused epilogue is
-// measured against (see "Spill epilogue" below).
+// measured against.
 //
-// What it computes: A (M, K) times B (K, N), both in T (float or bf16)
-// with arbitrary strides, summed in fp32 over K blocks of bk elements that
-// are grouped into f fold bands.  OS casts the resident accumulator to the
-// output type once; WS and IS add each (band, k) partial product into an
-// fp32 output buffer that the caller allocates and casts.
+// What it computes: A (M, K) times B (K, N), summed in fp32 over K blocks
+// of bk elements that are grouped into f fold bands; the fused epilogue
+// writes C once, the spill epilogue (K6) writes fp32 planes instead: one
+// per K block under WS/IS ((ceil(K / bk), M, N), the fold ignored, as in
+// the reference) and one per fold band under OS with f > 1 ((f, M, N)).
+// Plane offsets are 64-bit: planes x M x N passes 2^31 at the LM head.
 //
-// What bounds it on this card: at decode sizes (M = 8 rows) bytes -- the
-// weight matrix is read once and every weight element meets only M rows,
-// far below the ~295 flop/byte bf16 ridge (the 151936 x 896 bf16 LM head
-// alone is 272 MB, about 81 us at 3.35 TB/s).  At prefill-chunk sizes
-// (M = 256) the products approach the ridge, where this kernel's CUDA-core
-// FMAs (67 TFLOP/s fp32 peak, no tensor cores yet) become the limit.
+// Two routes, chosen by one rule (kernels/mpgemm.py: mpgemm_route):
 //
-// Design: 256 threads per CTA, each owning a (BM/16) x (BN/16) block of
-// the output tile in registers; operands are staged in shared memory as
-// fp32 in KSTEP-wide K slices (rows padded by one float, so the strided
-// loads of a transposed operand do not conflict on banks), with loads
-// walking each operand's contiguous dimension and issued eight at a time
-// per thread before any is stored, so that a slice costs about one memory
-// round trip.  Edges are masked with
-// zero fill, so any M, N, K is taken without padding copies.  Every output
-// tile has exactly one owner CTA and no atomics are used, so the order of
-// the fp32 sums is fixed and a run is bit-reproducible.
+//  * The Hopper route (mpgemm_hopper_launch) takes bf16 operands that TMA
+//    can describe: A with K contiguous, B with K or N contiguous, the other
+//    stride x 2 bytes a multiple of 16, bases 16-byte aligned -- and a K
+//    block of whole 64-element ring stages (bk a multiple of 64).
+//  * The CUDA-core route (mpgemm_launch / mpgemm_spill_launch, below)
+//    takes everything else: fp32 operands, which stay IEEE fp32 (FMA on
+//    CUDA cores, never TF32), and bf16 operands whose layout TMA refuses.
+//
+// What bounds each regime on this card, and what the Hopper route does:
+//
+//  * Decode (M <= 64 rows): bytes.  Every weight element meets only M
+//    rows, far below the ~295 flop/byte bf16 ridge (the 151936 x 896 LM
+//    head is 272 MB, 81 us at 3.35 TB/s).  The kernel swaps the operands
+//    and computes the C^T tile: 64 weight rows (N) fill wgmma's M = 64 and
+//    the M activation rows its n = 8..64, so no tensor-core row is padding.
+//    TMA keeps up to 8 stages of weight tiles in flight per CTA (a 72 KB
+//    ring, so that three CTAs share an SM).  Where the
+//    output has few tiles (q/o/down at M = 8: 14 of 64 columns), the K
+//    blocks are split over a cluster (below) so that about 132 CTAs read
+//    the weight at once.
+//  * Prefill chunks (M = 256 .. 2048): operations.  bf16 wgmma
+//    (m64n128k16 or m64n256k16, two consumer warpgroups, a 128 x 128 or
+//    128 x 256 tile) fed by TMA through a 4-stage ring.
+//
+// Design of the Hopper kernel (one template, mpgemm_hopper):
+//
+//   Ring.  One producer warp issues TMA 2-D tiled loads (128-byte swizzle,
+//   64 K elements = one 128-byte row a stage) into a ring of shared-memory
+//   stages; "full" mbarriers count the bytes in, "empty" mbarriers count
+//   the consumer warpgroups out.  Consumers issue wgmma.mma_async from
+//   shared memory; the fp32 accumulator stays in registers over the CTA's
+//   whole K range.  A K-contiguous operand is a K-major wgmma operand; an
+//   N-contiguous weight (K, N), or its transpose under the swap, is an
+//   MN-major one (wgmma's transpose bit for 16-bit types), so the tied
+//   head's emb.t() (strides (1, 896)) and a (K, N) weight are both read
+//   where they lie, without a copy.  TMA zero-fills past the edges, so any
+//   M, N, K is taken without padding copies.
+//
+//   Fold bands on a cluster (OS).  The CTA's K range is a list of units:
+//   the f fold bands when f > 1, else c consecutive runs of whole bk
+//   blocks, c chosen so the tiles x c CTAs about fill the 132 SMs
+//   (tiling.hopper_launch).  Cluster rank r walks units r, r + c, ... in
+//   order.  The ranks' accumulators are then summed through distributed
+//   shared memory in rank order into rank 0, which casts and stores: no
+//   global workspace, no atomics, no second launch -- partial sums never
+//   reach device memory (GTA's fused reduction on this card).
+//
+//   Stationarity (WS / IS).  Every CTA owns its output tile over all of K
+//   and writes it once, in the output type: no fp32 read-modify-write and
+//   no cast launch.  The stationary operand is shared by a cluster of 2
+//   CTAs along the streamed dimension and TMA-multicast to both (WS: the B
+//   tile, to CTAs along M; IS: the A tile, to CTAs along N).  When the
+//   streamed dimension has one tile (WS at M = 8: one 8-row tile) the
+//   cluster along it has size 1.  The grid is padded to a whole number of
+//   clusters; a padding CTA repeats the last tile and stores nothing.
+//
+//   Spill (K6, kSpill).  The same kernel: WS/IS store the accumulator to
+//   plane kg after each K block and zero it; OS with f > 1 puts one band
+//   on each CTA (no cluster) and stores its sum to plane fi.
+//
+//   Order.  Every output element's fp32 sum is taken in a fixed order (K
+//   order within a unit, units in rank order), with no atomics, so a run
+//   is bit-reproducible.  The order differs from the plain version's (one
+//   fp32 sum per K block, then the blocks in K order) by rounding only.
+//
+// The CUDA-core route (unchanged): 256 threads per CTA, each owning a
+// (BM/16) x (BN/16) block of the output tile in registers; operands are
+// staged in shared memory as fp32 in KSTEP-wide K slices (rows padded by
+// one float, so the strided loads of a transposed operand do not conflict
+// on banks), with loads walking each operand's contiguous dimension and
+// issued eight at a time per thread before any is stored.  Edges are
+// masked with zero fill.
 //   OS: one CTA per (m, n) tile, looping over the f bands and the k steps
 //       inside each band with the accumulator in registers.
 //   WS: a CTA holds the bk x BN B tile of one (band, k) step in shared
-//       memory while it streams its chunk of M tiles past it (loop order:
-//       (band, k) outer, m inner), read-modify-writing the fp32 output.
+//       memory while it streams its chunk of M tiles past it, read-modify-
+//       writing the fp32 output (the caller casts it).
 //   IS: the same with the BM x bk A tile stationary and N tiles streamed.
 // WS/IS split the streamed dimension into chunks over the grid (the
-// caller passes the chunk length), so that about two waves of CTAs are in
-// flight even when the stationary dimension is a single tile -- the LM
-// head (M = 8, N = 151936) under IS.  fp32 stays true fp32 (FMA on CUDA
-// cores, never TF32).  Tensor cores (wgmma), TMA and warp specialisation
-// are later work.
-//
-// Spill epilogue (K6, mpgemm_spill_launch): the same kernels, instantiated
-// with kSpill, store partial tiles into an fp32 plane tensor P (planes, M,
-// N) instead of reducing them; the caller sums the planes afterwards.
-//   WS/IS: one plane per K block (planes = ceil(K / bk); the fold is
-//       ignored, as in the reference).  Where the fused kernel adds a
-//       (k, tile) partial into C, the spill kernel stores it into plane k:
-//       a plain store, no read-modify-write and no zero fill, and every
-//       (k, m-tile, n-tile) of every plane has exactly one owner CTA.
-//   OS with f > 1 bands: the bands are independent, so they go on the
-//       grid, (gn, gm, f): one CTA per (tile, band) accumulates its band's
-//       ceil(K / bk) / f steps in registers and stores plane fi.
-// What bounds it: bytes.  Every plane is written once, planes x M x N x 4
-// bytes (the down projection at 256 rows under WS, bk = 32: 152 planes,
-// 139 MB, about 42 us at 3.35 TB/s, against 2.2 GFLOP of products), and
-// the reduction reads them back.  Plane offsets are 64-bit: planes x M x
-// N passes 2^31 at the LM head.
+// caller passes the chunk length).  Spill: WS/IS store each (k, tile)
+// partial into plane k; OS with f bands puts the bands on the grid,
+// (gn, gm, f), and stores plane fi.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -396,4 +435,705 @@ extern "C" int mpgemm_spill_launch(int dataflow, int dtype, int bm, int bn,
   return launch_tile<true>(bm, bn, dtype, dataflow, 1, A, sam, sak, B, sbk,
                            sbn, P, M, N, K, bk, dataflow == 0 ? f : 1, per,
                            static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// The Hopper route: bf16 wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+#include <cuda.h>   // CUtensorMap and its enums (header only: the encoder
+                    // is fetched at run time, see encoder())
+#include <cstdint>
+
+namespace {
+namespace hop {
+
+constexpr int kBoxK = 64;       // K elements a stage: one 128-byte row
+constexpr int kRowBytes = 128;  // bf16 x kBoxK, the swizzle span
+constexpr int kAtom = 8192;     // 64 rows x 128 bytes: one wgmma M chunk
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n"
+      ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive on the barrier at the same offset in cluster CTA `rank`.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t rank) {
+  asm volatile("{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+               "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+               ::"r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One 2-D TMA box into shared memory, completing on `bar`; with a
+// non-zero mask the box is multicast to those CTAs of the cluster (same
+// shared-memory offset and barrier in each).
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1,
+                                        uint16_t mask) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if (mask == 0) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+        ::"r"(dst), "l"(m), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], "
+        "%3;\n"
+        ::"r"(dst), "l"(m), "r"(smem_u32(bar)), "h"(mask), "r"(c0),
+        "r"(c1) : "memory");
+  }
+}
+
+// Load the ROWS x kBoxK operand tile at (r0, k) into one stage.  K-major
+// (K contiguous): one box {64 K, ROWS}.  MN-major (rows contiguous):
+// ROWS / 64 boxes {64 rows, 64 K}, each a kAtom apart.  Both leave
+// ROWS x 128 bytes in 128-byte-swizzled rows.
+template <bool kKMajor, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint64_t* bar, int k, int r0,
+                                          uint16_t mask) {
+  if constexpr (kKMajor) {
+    tma_box(dst, map, bar, k, r0, mask);
+  } else {
+#pragma unroll
+    for (int j = 0; j < ROWS / 64; ++j)
+      tma_box(dst + j * kAtom, map, bar, r0 + 64 * j, k, mask);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major: rows 128 B
+// apart, 8-row atoms 1024 B apart (SBO), LBO unused (1).  MN-major: K rows
+// 128 B apart, 8-row atoms 1024 B apart (SBO), 64-wide MN chunks a kAtom
+// apart (LBO).
+template <bool kKMajor>
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  constexpr uint64_t lbo = kKMajor ? 1 : kAtom >> 4;
+  constexpr uint64_t sbo = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (lbo << 16) |
+         (sbo << 32) | (1ull << 62);
+}
+
+// Byte offset of the k16 step s inside a stage's tile: 16 elements along
+// a K-major row (32 B), or 16 rows of an MN-major tile (2048 B).
+template <bool kKMajor>
+__device__ __forceinline__ uint32_t kstep_offset(int s) {
+  return kKMajor ? 32 * s : 16 * kRowBytes * s;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+template <int NR>
+__device__ __forceinline__ void fence_acc(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, fp32 += bf16 x bf16, both operands in shared
+// memory; TA / TB are the transpose bits (1 = MN-major).
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<8> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<256> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+// Launch geometry, computed by the caller (tiling.hopper_launch).
+struct Geo {
+  int M, N, K;
+  int bk, gk;            // K block and ceil(K / bk)
+  int tiles_p, tiles_q;  // real tiles; the grid may be padded to clusters
+  int units, zsplit;     // K units (bands / runs / planes) and the ranks
+                         // (gridDim.z) walking them: rank z takes units
+                         // z, z + zsplit, ...
+  int mc, csize;         // multicast cluster: 0 none, 1 along p (the Q
+                         // tile shared), 2 along q (the P tile shared)
+};
+
+// First K block of unit u: the units cut the gk blocks into runs of whole
+// blocks, unit u starting at block u gk / units.
+__device__ __forceinline__ int unit_block(int u, const Geo& g) {
+  return static_cast<int>(static_cast<long long>(u) * g.gk / g.units);
+}
+
+template <typename T> __device__ __forceinline__ T cvt(float v);
+template <> __device__ __forceinline__ float cvt<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Store a consumer thread's accumulator fragment of the (64 x
+// warpgroups) x TQ tile at (p0, q0) into C (M, N), contiguous; under the
+// swap the tile is C^T (p runs over N, q over M).  Fragment of m64nNk16:
+// register 4j + 2h + e holds row 16 warp + lane / 4 + 8 h, column 8 j +
+// 2 (lane % 4) + e.
+template <typename TO, int NR, bool kSwap>
+__device__ __forceinline__ void store_acc(TO* __restrict__ C,
+                                          const float (&acc)[NR], int p0,
+                                          int q0, int M, int N) {
+  const int t = threadIdx.x & 127, wg = threadIdx.x >> 7;
+  const int lane = t & 31, warp = t >> 5;
+  const int pr = p0 + wg * 64 + warp * 16 + (lane >> 2);
+  const bool pairs = !kSwap && (N % 2 == 0);
+#pragma unroll
+  for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = pr + 8 * h;
+      const int q = q0 + 8 * j + 2 * (lane & 3);
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (kSwap) {
+        if (p < N) {
+          if (q < M) C[static_cast<long>(q) * N + p] = cvt<TO>(v0);
+          if (q + 1 < M) C[static_cast<long>(q + 1) * N + p] = cvt<TO>(v1);
+        }
+      } else if (p < M) {
+        TO* row = C + static_cast<long>(p) * N;
+        if (pairs && q + 1 < N) {
+          if constexpr (sizeof(TO) == 4) {
+            *reinterpret_cast<float2*>(row + q) = make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(row + q) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        } else {
+          if (q < N) row[q] = cvt<TO>(v0);
+          if (q + 1 < N) row[q + 1] = cvt<TO>(v1);
+        }
+      }
+    }
+  }
+}
+
+template <int TP, int TQ>
+struct Shape {
+  static constexpr bool kSwap = TP == 64;    // P = B^T, Q = A^T: C^T tile
+  static constexpr int kWG = TP / 64;        // consumer warpgroups
+  static constexpr int kConsumers = kWG * 128;
+  static constexpr int kThreads = kConsumers + 32;   // + the producer warp
+  static constexpr int kStage = (TP + TQ) * kRowBytes;
+  // a 72 KB ring for the swapped tiles (8 stages at n = 8 .. 4 at n = 64,
+  // three CTAs an SM), 4 stages for the 128-row tiles
+  static constexpr int kRing = 72 * 1024 / kStage;
+  static constexpr int kStages =
+      !kSwap ? 4 : (kRing < 4 ? 4 : (kRing > 8 ? 8 : kRing));
+  static constexpr int kBarOffset = kStages * kStage;
+  static constexpr int kRedOffset = kBarOffset + 256;
+  // one fp32 tile for the DSMEM reduction, where it fits beside the ring
+  // (128 x 256 has no room: the caller never splits its K)
+  static constexpr int kRedBytes =
+      1024 + kRedOffset + TP * TQ * 4 <= 232448 ? TP * TQ * 4 : 0;
+  // dynamic shared memory: 1024 B of alignment slack, the ring, the
+  // barriers, and (K split over a cluster) the tile DSMEM reduces
+  static constexpr int smem(bool red) {
+    return 1024 + kRedOffset + (red ? kRedBytes : 0);
+  }
+};
+
+// C = A . B on the Hopper route.  P (TP rows) and Q (TQ columns) are the
+// wgmma A and B operands: (A, B) normally, (B^T, A^T) under the swap.
+// kBK: B has K contiguous.  Grid (grid_p, grid_q, zsplit).
+template <int TP, int TQ, bool kBK, bool kSpill, typename TO>
+__global__ void __launch_bounds__(Shape<TP, TQ>::kThreads, 1)
+mpgemm_hopper(const __grid_constant__ CUtensorMap tmP,
+              const __grid_constant__ CUtensorMap tmQ, TO* __restrict__ C,
+              const Geo g) {
+  using S = Shape<TP, TQ>;
+  constexpr bool kSwap = S::kSwap;
+  constexpr bool kPK = kSwap ? kBK : true;   // A has K contiguous
+  constexpr bool kQK = kSwap ? true : kBK;
+  constexpr int NR = TQ / 2;                 // accumulator registers
+  constexpr int P_BYTES = TP * kRowBytes;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
+  uint64_t* empty = full + S::kStages;
+  float* red = reinterpret_cast<float*>(smem + S::kRedOffset);
+
+  const int tid = threadIdx.x;
+  const bool kcl = !kSpill && g.zsplit > 1;      // K split on a cluster
+  const int csize = g.mc ? g.csize : (kcl ? g.zsplit : 1);
+  const uint32_t rank = csize > 1 ? cluster_rank() : 0;
+  const bool valid = static_cast<int>(blockIdx.x) < g.tiles_p &&
+                     static_cast<int>(blockIdx.y) < g.tiles_q;
+  const int p0 = min(static_cast<int>(blockIdx.x), g.tiles_p - 1) * TP;
+  const int q0 = min(static_cast<int>(blockIdx.y), g.tiles_q - 1) * TQ;
+  const int z = blockIdx.z;
+
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], S::kWG * (g.mc ? g.csize : 1));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (csize > 1) cluster_sync(); else __syncthreads();
+
+  float acc[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+
+  // the role is a function of the warp, made visibly warp-uniform so that
+  // ptxas does not serialize the wgmmas of a "divergent" path
+  const int warp = __shfl_sync(0xffffffff, tid / 32, 0);
+  if (warp >= S::kConsumers / 32) {
+    // producer: one thread keeps the ring full
+    if (tid == S::kConsumers) {
+      const uint16_t mask = static_cast<uint16_t>((1u << g.csize) - 1);
+      const bool own_p = g.mc != 2 || rank == 0;
+      const bool own_q = g.mc != 1 || rank == 0;
+      int stage = 0, phase = 0;
+      for (int u = z; u < g.units; u += g.zsplit) {
+        const int k0 = unit_block(u, g) * g.bk;
+        const int k1 = min(unit_block(u + 1, g) * g.bk, g.K);
+        for (int k = k0; k < k1; k += kBoxK) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], S::kStage);
+          const uint32_t sp = smem_u32(smem + stage * S::kStage);
+          if (own_p)
+            load_tile<kPK, TP>(sp, &tmP, &full[stage], k, p0,
+                               g.mc == 2 ? mask : 0);
+          if (own_q)
+            load_tile<kQK, TQ>(sp + P_BYTES, &tmQ, &full[stage], k, q0,
+                               g.mc == 1 ? mask : 0);
+          if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns P rows [64 wg, 64 wg + 64).  Every
+    // stage is four whole k16 steps (the route takes bk a multiple of 64,
+    // and TMA zero-fills past K), so no wgmma sits on a conditional path
+    // (ptxas would serialize them).  One wgmma group stays in flight: a
+    // stage is released when the next stage's group has been issued.
+    const int wg = warp / 4;
+    const bool lead = (tid & 127) == 0;
+    int stage = 0, phase = 0, held = -1;
+    auto release = [&](int st) {
+      if (lead) {
+        if (g.mc) {
+          for (int r = 0; r < g.csize; ++r) mbar_arrive_remote(&empty[st], r);
+        } else {
+          mbar_arrive(&empty[st]);
+        }
+      }
+    };
+    for (int u = z; u < g.units; u += g.zsplit) {
+      const int k0 = unit_block(u, g) * g.bk;
+      const int k1 = min(unit_block(u + 1, g) * g.bk, g.K);
+      for (int k = k0; k < k1; k += kBoxK) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t sp = smem_u32(smem + stage * S::kStage) + wg * kAtom;
+        const uint32_t sq = smem_u32(smem + stage * S::kStage) + P_BYTES;
+        fence_acc(acc);
+        wg_fence();
+#pragma unroll
+        for (int s = 0; s < kBoxK / 16; ++s)
+          Wgmma<TQ>::template mma<kPK ? 0 : 1, kQK ? 0 : 1>(
+              acc, gmma_desc<kPK>(sp + kstep_offset<kPK>(s)),
+              gmma_desc<kQK>(sq + kstep_offset<kQK>(s)));
+        wg_commit();
+        wg_wait<1>();
+        fence_acc(acc);
+        if (held >= 0) release(held);
+        held = stage;
+        if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+      }
+      if constexpr (kSpill) {
+        wg_wait<0>();
+        fence_acc(acc);
+        if (held >= 0) release(held);
+        held = -1;
+        if (valid)
+          store_acc<TO, NR, kSwap>(
+              C + static_cast<long>(u) * g.M * g.N, acc, p0, q0, g.M, g.N);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+      }
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+    if (held >= 0) release(held);
+  }
+
+  if constexpr (!kSpill) {
+    if (kcl) {
+      // the ranks' partial tiles, summed into rank 0 in rank order
+      float4* mine = reinterpret_cast<float4*>(red);
+      if (tid < S::kConsumers && rank != 0) {
+#pragma unroll
+        for (int j = 0; j < NR / 4; ++j)
+          mine[j * S::kConsumers + tid] = make_float4(
+              acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      cluster_sync();
+      if (tid < S::kConsumers && rank == 0) {
+        for (int r = 1; r < g.zsplit; ++r) {
+#pragma unroll
+          for (int j = 0; j < NR / 4; ++j) {
+            uint32_t ra;
+            const uint32_t la = smem_u32(&mine[j * S::kConsumers + tid]);
+            asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                         : "=r"(ra) : "r"(la), "r"(r));
+            float x, y, zz, w;
+            asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=f"(x), "=f"(y), "=f"(zz), "=f"(w) : "r"(ra)
+                         : "memory");
+            acc[4 * j] += x;
+            acc[4 * j + 1] += y;
+            acc[4 * j + 2] += zz;
+            acc[4 * j + 3] += w;
+          }
+        }
+        store_acc<TO, NR, kSwap>(C, acc, p0, q0, g.M, g.N);
+      }
+      cluster_sync();                 // peers stay until rank 0 has read
+    } else if (tid < S::kConsumers && valid) {
+      store_acc<TO, NR, kSwap>(C, acc, p0, q0, g.M, g.N);
+    }
+  }
+  if (g.mc && csize > 1) cluster_sync();   // peers' remote arrivals land
+}
+
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of this route beside CUDA's own.
+constexpr int kNoEncoder = 9001;       // no cuTensorMapEncodeTiled found
+constexpr int kEncodeFailed = 9100;    // + the CUresult
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a rows x K bf16 operand: K contiguous (K-major, box
+// {64 K, box_rows}) or rows contiguous (box {64 rows, 64 K}); `stride` is
+// the other dimension's stride in elements.
+int encode(CUtensorMap* map, const void* ptr, bool kmajor, long rows, long K,
+           long stride, int box_rows) {
+  EncodeFn fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[2] = {
+      static_cast<cuuint64_t>(kmajor ? K : rows),
+      static_cast<cuuint64_t>(kmajor ? rows : K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBoxK),
+                             static_cast<cuuint32_t>(kmajor ? box_rows : kBoxK)};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+template <int TP, int TQ, bool kBK, bool kSpill, typename TO>
+int launch(const CUtensorMap& mp, const CUtensorMap& mq, void* C, Geo g,
+           int grid_p, int grid_q, cudaStream_t st) {
+  using S = Shape<TP, TQ>;
+  auto kernel = mpgemm_hopper<TP, TQ, kBK, kSpill, TO>;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem(true));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool kcl = !kSpill && g.zsplit > 1;
+  if (kcl && (S::kRedBytes == 0 || g.zsplit > 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_p, grid_q, g.zsplit);
+  cfg.blockDim = dim3(S::kThreads);
+  cfg.dynamicSmemBytes = S::smem(kcl);
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = g.mc == 1 ? g.csize : 1;
+  at[0].val.clusterDim.y = g.mc == 2 ? g.csize : 1;
+  at[0].val.clusterDim.z = kcl ? g.zsplit : 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  TO* c = static_cast<TO*>(C);
+  void* args[] = {const_cast<CUtensorMap*>(&mp), const_cast<CUtensorMap*>(&mq),
+                  &c, &g};
+  const cudaError_t e = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(kernel), args);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// epi: 0 = fused, C in bf16; 1 = fused, C in fp32; 2 = spill planes (fp32)
+template <int TP, int TQ, bool kBK>
+int launch_epi(int epi, const CUtensorMap& mp, const CUtensorMap& mq,
+               void* C, const Geo& g, int grid_p, int grid_q,
+               cudaStream_t st) {
+  if (epi == 0)
+    return launch<TP, TQ, kBK, false, __nv_bfloat16>(mp, mq, C, g, grid_p,
+                                                      grid_q, st);
+  if (epi == 1)
+    return launch<TP, TQ, kBK, false, float>(mp, mq, C, g, grid_p, grid_q, st);
+  return launch<TP, TQ, kBK, true, float>(mp, mq, C, g, grid_p, grid_q, st);
+}
+
+}  // namespace hop
+}  // namespace
+
+// The Hopper route.  A (M, K) bf16 with K contiguous (row stride sam); B
+// (K, N) bf16 with K contiguous (sbk == 1, column stride sbn) or N
+// contiguous (sbn == 1, row stride sbk); strides x 2 bytes multiples of
+// 16, bases 16-byte aligned, bk a multiple of 64 (kernels/mpgemm.py:
+// mpgemm_route).  (bm, bn) is one of tiling.HOPPER_TILES: bm <= 64 swaps
+// the operands (tile C^T: 64 rows of N by bm rows of M), bm = 128 is the
+// 128 x bn tile.  The
+// geometry -- tiles, padded grid, units, zsplit, multicast cluster -- is
+// tiling.hopper_launch's.  epi: 0 fused bf16 out, 1 fused fp32 out, 2
+// spill planes ((units, M, N) fp32).  Returns 0 when launched, else a
+// CUDA error code or 9001 (no tensor-map encoder) / 9100 + CUresult.
+extern "C" int mpgemm_hopper_launch(
+    int epi, int bm, int bn, const void* A, long sam, const void* B,
+    long sbk, long sbn, void* C, int M, int N, int K, int bk, int tiles_p,
+    int tiles_q, int grid_p, int grid_q, int units, int zsplit, int mc,
+    int csize, void* stream) {
+  const bool bkc = sbk == 1;           // B has K contiguous
+  const bool swap = bm <= 64;
+  const int tp = swap ? bn : bm, tq = swap ? bm : bn;
+  if (epi < 0 || epi > 2 || (!bkc && sbn != 1) || bk <= 0 || bk % 64 ||
+      units < 1 || zsplit < 1 || csize < 1 || csize > 8 || mc < 0 ||
+      mc > 2 || (mc && (mc == 1 ? grid_p : grid_q) % csize))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (csize == 1) mc = 0;
+  hop::Geo g{M, N, K, bk, (K + bk - 1) / bk, tiles_p, tiles_q,
+             units, zsplit, mc, csize};
+  CUtensorMap ma, mb;
+  int rc = hop::encode(&ma, A, true, M, K, sam, swap ? tq : tp);
+  if (rc == 0)
+    rc = hop::encode(&mb, B, bkc, N, K, bkc ? sbn : sbk, swap ? tp : tq);
+  if (rc != 0) return rc;
+  const CUtensorMap& mp = swap ? mb : ma;
+  const CUtensorMap& mq = swap ? ma : mb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MPGEMM_HOPPER(TP, TQ)                                                 \
+  if (tp == TP && tq == TQ)                                                   \
+    return bkc ? hop::launch_epi<TP, TQ, true>(epi, mp, mq, C, g, grid_p,     \
+                                               grid_q, st)                    \
+               : hop::launch_epi<TP, TQ, false>(epi, mp, mq, C, g, grid_p,    \
+                                                grid_q, st);
+  MPGEMM_HOPPER(64, 8)
+  MPGEMM_HOPPER(64, 16)
+  MPGEMM_HOPPER(64, 32)
+  MPGEMM_HOPPER(64, 64)
+  MPGEMM_HOPPER(128, 128)
+  MPGEMM_HOPPER(128, 256)
+#undef MPGEMM_HOPPER
+  return static_cast<int>(cudaErrorInvalidValue);
 }

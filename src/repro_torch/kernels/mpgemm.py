@@ -3,22 +3,31 @@ and the partial-plane spill epilogue (K6).
 
 The paper's §5 schedules one p-GEMM by choosing which operand stays
 stationary; ``csrc/mpgemm.cu`` (the port of the reference's Pallas
-``mpgemm``) realizes each choice on Hopper:
+``mpgemm``) realizes each choice on Hopper, by one of two routes that
+:func:`mpgemm_route` chooses by a stated rule:
 
-  OS  one CTA per output tile, the fp32 accumulator in registers across
-      all fold bands and K steps, one cast at the end;
-  WS  the B (weight) tile of a (band, k) step stays in shared memory while
-      the CTA streams its chunk of M tiles, adding into an fp32 output;
-  IS  the A (input) tile stays while the CTA streams its chunk of N tiles.
+  hopper     bf16 operands TMA can describe: bf16 wgmma fed by TMA through
+             an mbarrier ring (``tiling.HOPPER_TILES``; the operands are
+             swapped for M <= 64; bk a multiple of 64).  OS splits its fold bands -- or, when
+             the output has few tiles, runs of whole K blocks -- over a
+             cluster and sums them through distributed shared memory;
+             WS / IS own each output tile over all of K and multicast the
+             stationary operand (B under WS, A under IS) to a cluster.
+             The output is written once, in the output type.
+  cuda_core  everything else (fp32, which stays IEEE fp32, and bf16 whose
+             layout TMA refuses): the CUDA-core kernels
+             (``tiling.KERNEL_TILES``), OS with the accumulator in
+             registers, WS / IS with the stationary tile in shared memory
+             adding into an fp32 output that the wrapper casts.
 
 ``k_fold`` splits the K blocks into ``f`` bands (``effective_fold``
 degrades an unrealizable request to the largest divisor of the K grid),
 so the band boundary the scheduler costs is explicit in the loop.  Every
-output element is summed by one thread in a fixed order, with no atomics.
+output element is summed in a fixed order, with no atomics.
 
-:func:`mpgemm` launches the kernel on CUDA tensors and runs
+:func:`mpgemm` launches a kernel on CUDA tensors and runs
 :func:`mpgemm_plain` -- the same block-wise fp32 sums in PyTorch -- on CPU
-tensors.  Shapes need not be block multiples: the kernel masks the edges.
+tensors.  Shapes need not be block multiples: the kernels mask the edges.
 
 ``epilogue="spill"`` keeps the reference's benchmark baseline, the
 partial-sum traffic GTA's fused accumulator exists to avoid: K6
@@ -39,10 +48,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.core.dataflow import Dataflow
-from repro_torch.core.tiling import KERNEL_TILES, KSTEP, stream_split
+from repro_torch.core.tiling import HOPPER_STAGE_K, HOPPER_TILES, \
+    KERNEL_TILES, KSTEP, core_tile, hopper_launch, stream_split
 from repro_torch.kernels import _build
 
 EPILOGUES = ("fused", "spill")
+ROUTES = ("hopper", "cuda_core")
 
 #: launches of the CUDA kernel, all dataflows (reset before a run)
 launches = _build.LaunchCounter()
@@ -52,13 +63,19 @@ launches_by_dataflow = {"OS": 0, "WS": 0, "IS": 0}
 spill_launches = _build.LaunchCounter()
 #: K6 launches per dataflow
 spill_launches_by_dataflow = {"OS": 0, "WS": 0, "IS": 0}
+#: K2 launches per route (``mpgemm_route``)
+launches_by_route = {r: 0 for r in ROUTES}
+#: K6 launches per route
+spill_launches_by_route = {r: 0 for r in ROUTES}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 _SIGNATURES = {
     "mpgemm_launch": (
         [_I] * 5 + [_P, _L, _L, _P, _L, _L, _P] + [_I] * 6 + [_P], _I),
     "mpgemm_spill_launch": (
-        [_I] * 4 + [_P, _L, _L, _P, _L, _L, _P] + [_I] * 6 + [_P], _I)}
+        [_I] * 4 + [_P, _L, _L, _P, _L, _L, _P] + [_I] * 6 + [_P], _I),
+    "mpgemm_hopper_launch": (
+        [_I] * 3 + [_P, _L, _P, _L, _L, _P] + [_I] * 12 + [_P], _I)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _DATAFLOW_CODE = {Dataflow.OS: 0, Dataflow.WS: 1, Dataflow.IS: 2}
 
@@ -79,11 +96,43 @@ def effective_fold(K: int, bk: int, k_fold: int) -> int:
 
 def reset_launches() -> None:
     """Zero K2's and K6's counts."""
-    for counter, by_df in ((launches, launches_by_dataflow),
-                           (spill_launches, spill_launches_by_dataflow)):
-        counter.reset()
-        for k in by_df:
-            by_df[k] = 0
+    launches.reset()
+    spill_launches.reset()
+    for by in (launches_by_dataflow, spill_launches_by_dataflow,
+               launches_by_route, spill_launches_by_route):
+        for k in by:
+            by[k] = 0
+
+
+def _tma_operand(t: torch.Tensor, k_dim: int, any_unit: bool) -> bool:
+    """Whether TMA can describe a 2-D bf16 operand: a unit stride (on the
+    K dimension ``k_dim``, or on either when ``any_unit``), the other
+    stride x 2 bytes a multiple of 16 and at least its dimension's extent,
+    and a 16-byte-aligned base."""
+    if t.data_ptr() % 16:
+        return False
+    for unit in ((k_dim, 1 - k_dim) if any_unit else (k_dim,)):
+        other = 1 - unit
+        if t.stride(unit) == 1 and (t.stride(other) * 2) % 16 == 0 \
+                and t.stride(other) >= t.shape[unit]:
+            return True
+    return False
+
+
+def mpgemm_route(a: torch.Tensor, b: torch.Tensor, bk: int) -> str:
+    """The kernel a CUDA dispatch of ``a @ b`` at K block ``bk`` launches:
+    ``"hopper"`` for bf16 operands that TMA can describe -- A (M, K) with
+    K contiguous, B (K, N) with K or N contiguous, the other stride x 2
+    bytes a multiple of 16, bases 16-byte aligned -- and a K block of
+    whole ring stages (``bk`` a multiple of ``tiling.HOPPER_STAGE_K``);
+    ``"cuda_core"`` for everything else (fp32, odd strides, unaligned
+    bases).  A pure function of the operands' type, strides and
+    addresses and of bk."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 \
+            or bk % HOPPER_STAGE_K:
+        return "cuda_core"
+    ok = _tma_operand(a, 1, False) and _tma_operand(b, 0, True)
+    return "hopper" if ok else "cuda_core"
 
 
 def spill_planes(K: int, bk: int, dataflow: Dataflow, k_fold: int) -> int:
@@ -135,9 +184,10 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(f"mpgemm takes float32 or bfloat16 operands of one "
                         f"type, got {a.dtype} and {b.dtype}")
-    if (bm, bn) not in KERNEL_TILES or bk % KSTEP or bk <= 0:
+    if (bm, bn) not in KERNEL_TILES + HOPPER_TILES or bk % KSTEP or bk <= 0:
         raise ValueError(f"unsupported tile ({bm}, {bn}, {bk}): tiles are "
-                         f"{KERNEL_TILES}, bk a multiple of {KSTEP}")
+                         f"{sorted(set(KERNEL_TILES + HOPPER_TILES))}, bk a "
+                         f"multiple of {KSTEP}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.device.type not in ("cpu", "cuda"):
@@ -147,14 +197,33 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
         raise ValueError(f"degenerate GEMM {(M, b.shape[1], K)}")
 
 
+def _launch_hopper(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                   df: Dataflow, bm: int, bn: int, bk: int, f: int,
+                   spill: bool) -> None:
+    """One Hopper-route launch into ``out``: C (M, N) in bf16 or fp32, or
+    the fp32 planes when ``spill``."""
+    M, K = a.shape
+    N = b.shape[1]
+    g = hopper_launch(M, N, K, df, bm, bn, bk, f, spill)
+    epi = 2 if spill else int(out.dtype == torch.float32)
+    lib = _build.load("mpgemm", _SIGNATURES)
+    rc = lib.mpgemm_hopper_launch(
+        epi, bm, bn, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        b.stride(1), out.data_ptr(), M, N, K, bk, g.tiles_p, g.tiles_q,
+        g.grid_p, g.grid_q, g.units, g.zsplit, g.mc, g.csize,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check_launch(rc, f"mpgemm hopper {df.value} {(M, N, K)} tile "
+                            f"{(bm, bn)}")
+
+
 def mpgemm_spill(a: torch.Tensor, b: torch.Tensor, *,
                  dataflow: Dataflow = Dataflow.WS, bm: int = 64,
                  bn: int = 64, bk: int = 32, k_fold: int = 1
                  ) -> torch.Tensor:
     """K6: the fp32 partial planes of a (M, K) @ b (K, N), as
-    :func:`mpgemm_spill_plain` defines them -- launched on CUDA tensors,
-    the plain version on CPU tensors.  Operand and tile rules as
-    :func:`mpgemm`."""
+    :func:`mpgemm_spill_plain` defines them -- launched on CUDA tensors
+    (the route :func:`mpgemm_route` names), the plain version on CPU
+    tensors.  Operand and tile rules as :func:`mpgemm`."""
     _check(a, b, bm, bn, bk)
     df = Dataflow.OS if dataflow is Dataflow.SIMD else dataflow
     if a.device.type == "cpu":
@@ -164,16 +233,23 @@ def mpgemm_spill(a: torch.Tensor, b: torch.Tensor, *,
     f = effective_fold(K, bk, k_fold)
     planes = torch.empty((spill_planes(K, bk, df, f), M, N),
                          dtype=torch.float32, device=a.device)
-    _, per = stream_split(M, N, bm, bn, df)
-    lib = _build.load("mpgemm", _SIGNATURES)
-    rc = lib.mpgemm_spill_launch(
-        _DATAFLOW_CODE[df], _DTYPE_CODE[a.dtype], bm, bn,
-        a.data_ptr(), a.stride(0), a.stride(1),
-        b.data_ptr(), b.stride(0), b.stride(1), planes.data_ptr(),
-        M, N, K, bk, f, per, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check_launch(rc, f"mpgemm_spill {df.value} {(M, N, K)}")
+    route = mpgemm_route(a, b, bk)
+    if route == "hopper":
+        _launch_hopper(a, b, planes, df, bm, bn, bk, f, True)
+    else:
+        cm, cn = core_tile(bm, bn)
+        _, per = stream_split(M, N, cm, cn, df)
+        lib = _build.load("mpgemm", _SIGNATURES)
+        rc = lib.mpgemm_spill_launch(
+            _DATAFLOW_CODE[df], _DTYPE_CODE[a.dtype], cm, cn,
+            a.data_ptr(), a.stride(0), a.stride(1),
+            b.data_ptr(), b.stride(0), b.stride(1), planes.data_ptr(),
+            M, N, K, bk, f, per,
+            torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check_launch(rc, f"mpgemm_spill {df.value} {(M, N, K)}")
     spill_launches.count += 1
     spill_launches_by_dataflow[df.value] += 1
+    spill_launches_by_route[route] += 1
     return planes
 
 
@@ -184,12 +260,15 @@ def mpgemm(a: torch.Tensor, b: torch.Tensor, *,
            epilogue: str = "fused") -> torch.Tensor:
     """C = a (M, K) @ b (K, N) with an explicit dataflow schedule.
 
-    ``(bm, bn)`` must be one of ``tiling.KERNEL_TILES`` and ``bk`` a
-    multiple of ``tiling.KSTEP``; any M, N, K and any strides are taken.
+    ``(bm, bn)`` must be one of ``tiling.HOPPER_TILES`` (which holds
+    ``tiling.KERNEL_TILES``) and ``bk`` a multiple of ``tiling.KSTEP``;
+    any M, N, K and any strides are taken.  The Hopper route runs the
+    tile as given; the CUDA-core route runs ``tiling.core_tile(bm, bn)``.
     The executed fold is ``effective_fold(K, bk, k_fold)``.  SIMD runs the
-    OS pipeline (there is no separate vector GEMM unit).
-    ``epilogue="spill"`` materializes K6's partial planes and sums them
-    (WS/IS always; OS only when the fold is above 1)."""
+    OS pipeline (there is no separate vector GEMM unit).  One kernel
+    launch a dispatch.  ``epilogue="spill"`` materializes K6's partial
+    planes and sums them (WS/IS always; OS only when the fold is above
+    1)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r} not in {EPILOGUES}")
     _check(a, b, bm, bn, bk)
@@ -203,21 +282,32 @@ def mpgemm(a: torch.Tensor, b: torch.Tensor, *,
         return planes.sum(0).to(out_dtype)
     if a.device.type == "cpu":
         return mpgemm_plain(a, b, bk=bk, k_fold=f, out_dtype=out_dtype)
-    if df is Dataflow.OS and out_dtype in (a.dtype, torch.float32):
-        out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    route = mpgemm_route(a, b, bk)
+    if route == "hopper":
+        # written once, in the output type (bf16 or fp32)
+        direct = out_dtype in (torch.bfloat16, torch.float32)
+        out = torch.empty((M, N), dtype=out_dtype if direct else
+                          torch.float32, device=a.device)
+        _launch_hopper(a, b, out, df, bm, bn, bk, f, False)
     else:
-        out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    _, per = stream_split(M, N, bm, bn, df)
-    lib = _build.load("mpgemm", _SIGNATURES)
-    rc = lib.mpgemm_launch(
-        _DATAFLOW_CODE[df], _DTYPE_CODE[a.dtype],
-        int(out.dtype == torch.float32), bm, bn,
-        a.data_ptr(), a.stride(0), a.stride(1),
-        b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
-        M, N, K, bk, f, per, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check_launch(rc, f"mpgemm {df.value} {(M, N, K)}")
+        if df is Dataflow.OS and out_dtype in (a.dtype, torch.float32):
+            out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+        else:
+            out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+        cm, cn = core_tile(bm, bn)
+        _, per = stream_split(M, N, cm, cn, df)
+        lib = _build.load("mpgemm", _SIGNATURES)
+        rc = lib.mpgemm_launch(
+            _DATAFLOW_CODE[df], _DTYPE_CODE[a.dtype],
+            int(out.dtype == torch.float32), cm, cn,
+            a.data_ptr(), a.stride(0), a.stride(1),
+            b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
+            M, N, K, bk, f, per,
+            torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check_launch(rc, f"mpgemm {df.value} {(M, N, K)}")
     launches.count += 1
     launches_by_dataflow[df.value] += 1
+    launches_by_route[route] += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
@@ -239,52 +329,84 @@ def dispatch_plan(M: int, N: int, K: int, *, dataflow: Dataflow,
     ``out_traffic_bytes``, ``(2 P + 1) M N 4`` (P planes written, read by
     the reduction, the sum written).
 
-    Describing this port's launch (the reference's describe a TPU grid):
-      grid               the CUDA grid: (gn, gm) for OS, (gn, gm, f) for
-                         OS spill, (gn, chunks) for WS and (gm, chunks)
-                         for IS, whose CTAs each stream ``per`` tiles
-                         (``tiling.stream_split``);
+    Describing this port's launch (the reference's describe a TPU grid),
+    on its ``route``: ``"hopper"`` for 2-byte operands at a Hopper tile
+    (taken to be bf16 that TMA can describe, as the models' are),
+    ``"cuda_core"`` otherwise:
+      grid               the CUDA grid.  Hopper: (grid_p, grid_q, zsplit)
+                         of ``tiling.hopper_launch``, with ``cluster`` its
+                         cluster shape.  CUDA-core: (gn, gm) for OS, (gn,
+                         gm, f) for OS spill, (gn, chunks) for WS and (gm,
+                         chunks) for IS, whose CTAs each stream ``per``
+                         tiles (``tiling.stream_split``);
       grid_steps         (bm, bn, bk) block products over the launch,
                          ``gm gn gk`` on every path;
-      hbm_traffic_bytes  operand reads by stationarity (OS re-reads A per
-                         N tile and B per M tile; a WS CTA holds its B
-                         tiles while its chunk of A streams past, so B is
-                         read once per chunk; IS the converse) plus
-                         ``out_traffic_bytes``: one write under OS, a
-                         store and ``gk - 1`` read-modify-writes of the
-                         fp32 output under WS/IS fused, the planes and
-                         their reduction under spill.
+      hbm_traffic_bytes  operand reads by stationarity plus
+                         ``out_traffic_bytes``.  Hopper: each CTA reads its
+                         own operand tile over its K range and the
+                         stationary tile is read once per multicast
+                         cluster; the output is written once (fused) or
+                         the planes are written and reduced (spill).
+                         CUDA-core: OS re-reads A per N tile and B per M
+                         tile; a WS CTA holds its B tiles while its chunk
+                         of A streams past, so B is read once per chunk
+                         (IS the converse); the output is written once
+                         under OS, stored and read-modify-written ``gk -
+                         1`` times in fp32 under WS/IS fused.
     """
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r} not in {EPILOGUES}")
     df = Dataflow.OS if dataflow is Dataflow.SIMD else dataflow
     if df not in _DATAFLOW_CODE:
         raise ValueError(f"unsupported dataflow {dataflow}")
+    route = "hopper" if abytes == bbytes == 2 and \
+        (bm, bn) in HOPPER_TILES else "cuda_core"
     gm, gn, gk = -(-M // bm), -(-N // bn), max(1, -(-K // bk))
     f = _fold_bands(gk, k_fold)
     out_once = M * N * 4                     # partials are fp32
     spills = epilogue == "spill" and (df is not Dataflow.OS or f > 1)
     planes = spill_planes(K, bk, df, f) if spills else 0
-    ctas, per = stream_split(M, N, bm, bn, df)
-    if df is Dataflow.OS:
-        grid = (gn, gm, f) if spills else (gn, gm)
-        a_traffic, b_traffic = gn * M * K * abytes, gm * K * N * bbytes
-    elif df is Dataflow.WS:
-        grid = (gn, ctas // gn)
-        a_traffic, b_traffic = gn * M * K * abytes, grid[1] * K * N * bbytes
+    extra = {}
+    if route == "hopper":
+        g = hopper_launch(M, N, K, df, bm, bn, bk, f, spills)
+        grid = g.grid
+        extra["cluster"] = g.cluster
+        p_readers = g.grid_q // g.csize if g.mc == 2 else g.grid_q
+        q_readers = g.grid_p // g.csize if g.mc == 1 else g.grid_p
+        pb, qb = (bbytes, abytes) if g.swap else (abytes, bbytes)
+        rows_p, rows_q = (N, M) if g.swap else (M, N)
+        p_traffic = p_readers * rows_p * K * pb
+        q_traffic = q_readers * rows_q * K * qb
+        a_traffic, b_traffic = (q_traffic, p_traffic) if g.swap else \
+            (p_traffic, q_traffic)
     else:
-        grid = (gm, ctas // gm)
-        a_traffic, b_traffic = grid[1] * M * K * abytes, gm * K * N * bbytes
+        cm, cn = core_tile(bm, bn) if (bm, bn) in HOPPER_TILES \
+            else (bm, bn)
+        cgm, cgn = -(-M // cm), -(-N // cn)
+        ctas, per = stream_split(M, N, cm, cn, df)
+        if df is Dataflow.OS:
+            grid = (cgn, cgm, f) if spills else (cgn, cgm)
+            a_traffic, b_traffic = cgn * M * K * abytes, cgm * K * N * bbytes
+        elif df is Dataflow.WS:
+            grid = (cgn, ctas // cgn)
+            a_traffic = cgn * M * K * abytes
+            b_traffic = grid[1] * K * N * bbytes
+        else:
+            grid = (cgm, ctas // cgm)
+            a_traffic = grid[1] * M * K * abytes
+            b_traffic = cgm * K * N * bbytes
     if spills:
         out_traffic = (2 * planes + 1) * out_once
-    elif df is Dataflow.OS:
+    elif df is Dataflow.OS or route == "hopper":
         out_traffic = out_once
     else:
         out_traffic = (2 * gk - 1) * out_once
     return {
         "dataflow": df.value,
         "epilogue": epilogue,
+        "route": route,
         "grid": grid,
+        **extra,
         "grid_steps": gm * gn * gk,
         "k_fold_requested": k_fold,
         "k_fold_effective": f,

@@ -30,8 +30,8 @@ import torch
 from repro_torch.core.dataflow import Dataflow
 from repro_torch.core.precision import precision_for_dtype
 from repro_torch.core.scheduler import ScheduleCache
-from repro_torch.core.tiling import FOLD_GRAIN, BlockConfig, \
-    choose_block_config
+from repro_torch.core.tiling import FOLD_GRAIN, HOPPER_BK, BlockConfig, \
+    choose_block_config, hopper_tile
 from repro_torch.kernels import accumulator
 from repro_torch.kernels import limb_gemm as _lg
 from repro_torch.kernels import mpgemm as _mp
@@ -88,16 +88,22 @@ def cached_block_config(M: int, N: int, K: int, ebytes: int, obytes: int,
 
 def plan_blocks(M: int, N: int, K: int, ebytes: int, dataflow: Dataflow,
                 fold_req: int) -> tuple[int, int, int]:
-    """(bm, bn, bk) of a launch: the Hopper chooser's tile for this
-    dataflow, with bk dropped to ``FOLD_GRAIN`` when the chosen bk cannot
-    host the requested fold -- the granularity the scheduler's
-    realizable-fold filter assumed (the reference's rule,
-    ``kernels/ops.py:180-186``), so the fold executes as scheduled."""
-    cfg = cached_block_config(M, N, K, ebytes, 4, dataflow)
-    bk = cfg.bk
+    """(bm, bn, bk) of a launch.  2-byte operands (bf16, the Hopper route):
+    the Hopper tile for the output (``tiling.hopper_tile``) and
+    ``HOPPER_BK``;
+    others (the CUDA-core route): the chooser's tile for this dataflow.
+    Either way bk drops to ``FOLD_GRAIN`` when it cannot host the
+    requested fold -- the granularity the scheduler's realizable-fold
+    filter assumed (the reference's rule, ``kernels/ops.py:180-186``), so
+    the fold executes as scheduled."""
+    if ebytes == 2:
+        (bm, bn), bk = hopper_tile(M, N), HOPPER_BK
+    else:
+        cfg = cached_block_config(M, N, K, ebytes, 4, dataflow)
+        bm, bn, bk = cfg.bm, cfg.bn, cfg.bk
     if fold_req > 1 and _mp.effective_fold(K, bk, fold_req) != fold_req:
         bk = FOLD_GRAIN
-    return cfg.bm, cfg.bn, bk
+    return bm, bn, bk
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,

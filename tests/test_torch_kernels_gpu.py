@@ -375,3 +375,138 @@ def test_mamba_engine_backends_agree_on_card(cuda):
             assert (TMP.launches.count > 0) == (backend == "scheduled")
             tokens[backend] = {r.rid: r.tokens.tolist() for r in res}
         assert tokens["xla"] == tokens["scheduled"]
+
+
+# ---------------------------------------------------------------------------
+# K2 / K6 on the Hopper route (bf16 wgmma fed by TMA)
+# ---------------------------------------------------------------------------
+
+def _bf16_operands(dev, M, N, K, seed, b_layout="kn"):
+    """a (M, K) ~ N(0, 1/K) and b (K, N) ~ N(0, 1) in bf16; ``b_layout``
+    "kn" is a (K, N) weight (N contiguous), "nk" the transposed view of a
+    (N, K) table (K contiguous, as the tied LM head)."""
+    gen = torch.Generator().manual_seed(seed)
+    a = (torch.randn(M, K, generator=gen) * K ** -0.5).to(dev, torch.bfloat16)
+    if b_layout == "kn":
+        b = torch.randn(K, N, generator=gen).to(dev, torch.bfloat16)
+    else:
+        b = torch.randn(N, K, generator=gen).to(dev, torch.bfloat16).t()
+    return a, b
+
+
+#: (M, N, K): qwen2-0.5b's decode and chunk rows, its head, mamba2's
+#: in_proj and out_proj at decode and chunk rows, a ragged shape TMA can
+#: still describe, and the swapped tiles n = 8 .. 64
+HOPPER_SHAPES = [(8, 896, 896), (8, 128, 896), (8, 896, 4864),
+                 (8, 151936, 896), (8, 10576, 2560), (8, 2560, 5120),
+                 (37, 1000, 904), (16, 640, 512), (30, 320, 1024),
+                 (64, 512, 640), (256, 896, 896), (200, 600, 1000),
+                 (2048, 10576, 2560), (2048, 2560, 5120)]
+
+
+@pytest.mark.parametrize("b_layout", ["kn", "nk"])
+@pytest.mark.parametrize("df", [Dataflow.OS, Dataflow.WS, Dataflow.IS])
+def test_mpgemm_hopper_route_matches_plain(cuda, df, b_layout):
+    """K2 on the Hopper route against its plain version at the tile
+    ``plan_blocks`` picks and at every Hopper tile: fp32 out within 1e-4
+    and bf16 out within 1e-2 of 1 + |ref| (the bf16 rounding of values of
+    order 1); every launch takes the Hopper route; a repeat is
+    bit-equal."""
+    TMP.reset_launches()
+    n = 0
+    for M, N, K in HOPPER_SHAPES:
+        a, b = _bf16_operands(cuda, M, N, K, M + N + K, b_layout)
+        assert TMP.mpgemm_route(a, b, 128) == "hopper"
+        tiles = {TOPS.plan_blocks(M, N, K, 2, df, 1)[:2]}
+        if (M, N, K) == (37, 1000, 904):
+            tiles |= set(tiling.HOPPER_TILES)
+        for (bm, bn), out_dtype in itertools.product(
+                sorted(tiles), (torch.float32, torch.bfloat16)):
+            got = TMP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=128,
+                             out_dtype=out_dtype)
+            want = TMP.mpgemm_plain(a, b, bk=128, k_fold=1,
+                                    out_dtype=out_dtype)
+            again = TMP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=128,
+                               out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            n += 2
+            tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+            rel = ((got.float() - want.float()).abs()
+                   / (1 + want.float().abs())).max().item()
+            assert got.dtype == out_dtype and rel <= tol, \
+                (M, N, K, bm, bn, str(out_dtype), rel)
+            assert torch.equal(got, again), (M, N, K, bm, bn)
+    assert TMP.launches_by_route == {"hopper": n, "cuda_core": 0}
+
+
+@pytest.mark.parametrize("fold", [2, 3, 4, 8])
+def test_mpgemm_hopper_fold_bands_on_a_cluster(cuda, fold):
+    """OS with k_fold 2, 3, 4 and 8 (bands over a cluster of at most 8
+    ranks, and more bands than ranks where the tiles leave fewer than
+    eight CTAs a tile), fused and spilled, against the plain versions."""
+    TMP.reset_launches()
+    for M, N, K in ((8, 896, 3072), (256, 896, 3072), (2048, 2560, 3072)):
+        a, b = _bf16_operands(cuda, M, N, K, fold)
+        bm, bn = tiling.hopper_tile(M, N)
+        f = TMP.effective_fold(K, 128, fold)
+        assert f == fold
+        got = TMP.mpgemm(a, b, dataflow=Dataflow.OS, bm=bm, bn=bn, bk=128,
+                         k_fold=f)
+        want = TMP.mpgemm_plain(a, b, bk=128, k_fold=f,
+                                out_dtype=torch.float32)
+        planes = TMP.mpgemm_spill(a, b, dataflow=Dataflow.OS, bm=bm, bn=bn,
+                                  bk=128, k_fold=f)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(planes, TMP.mpgemm_spill_plain(
+            a, b, dataflow=Dataflow.OS, bk=128, k_fold=f), rtol=1e-4,
+            atol=1e-4)
+        assert torch.equal(got, TMP.mpgemm(a, b, dataflow=Dataflow.OS, bm=bm,
+                                           bn=bn, bk=128, k_fold=f))
+    assert TMP.launches_by_route["cuda_core"] == 0
+    assert TMP.spill_launches_by_route == {"hopper": 3, "cuda_core": 0}
+
+
+@pytest.mark.parametrize("b_layout", ["kn", "nk"])
+@pytest.mark.parametrize("df", [Dataflow.WS, Dataflow.IS])
+def test_mpgemm_hopper_spill_planes(cuda, df, b_layout):
+    """K6 on the Hopper route under WS/IS: one plane per K block (bk 64
+    and 128, a ragged last block), each within 1e-4 of the plain plane,
+    and a repeat bit-equal."""
+    TMP.reset_launches()
+    for (M, N, K), bk in itertools.product(((8, 896, 904), (256, 896, 1024),
+                                            (37, 1000, 904)), (64, 128)):
+        a, b = _bf16_operands(cuda, M, N, K, bk, b_layout)
+        bm, bn = tiling.hopper_tile(M, N)
+        got = TMP.mpgemm_spill(a, b, dataflow=df, bm=bm, bn=bn, bk=bk)
+        want = TMP.mpgemm_spill_plain(a, b, dataflow=df, bk=bk, k_fold=1)
+        again = TMP.mpgemm_spill(a, b, dataflow=df, bm=bm, bn=bn, bk=bk)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (-(-K // bk), M, N)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, again)
+    assert TMP.spill_launches_by_route == {"hopper": 12, "cuda_core": 0}
+
+
+def test_mpgemm_route_rule_on_card(cuda):
+    """fp32 and bf16 operands TMA refuses (K = 763: a row of 1526 bytes)
+    take the CUDA-core route and still match the plain version."""
+    TMP.reset_launches()
+    a, b = _bf16_operands(cuda, 100, 150, 763, 1)
+    for x, y in ((a, b), (a.float(), b.float())):
+        assert TMP.mpgemm_route(x, y, 64) == "cuda_core"
+        got = TMP.mpgemm(x, y, dataflow=Dataflow.IS, bm=8, bn=64, bk=64)
+        torch.testing.assert_close(got, TMP.mpgemm_plain(
+            x, y, bk=64, k_fold=1, out_dtype=torch.float32), rtol=1e-4,
+            atol=1e-4)
+    assert TMP.launches_by_route == {"hopper": 0, "cuda_core": 2}
+
+
+def test_gemm_tiles_entry_point_on_card(cuda, capsys):
+    """``launch.gemm_tiles`` times every candidate tile of a decode and a
+    chunk shape and the host cost of a call."""
+    from repro_torch.launch import gemm_tiles
+    gemm_tiles.main(["--shapes", "8x256x128,256x512x128"])
+    out = capsys.readouterr().out
+    assert "(8, 256, 128)" in out and "(256, 512, 128)" in out
+    assert "8x64" in out and "128x256" in out and "host time" in out
