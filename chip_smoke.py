@@ -10,7 +10,11 @@ Phases, in order (each failure is reported and the script exits 1):
   3. K1 paged decode against its plain version at qwen2-0.5b's decode
      shapes (B=8, KV=2, G=7, hd=64, bs=16), ragged lengths with 0, 1, a
      block boundary and a full table, NULL-block entries, and one case
-     with a window and a softcap, in fp32 and bf16;
+     with a window and a softcap, in fp32 and bf16; then the split-KV
+     grid's edges: lengths at split boundaries +-1, a window spanning
+     several splits, B = 1, nbs = 1, bs 8, hd 128 with G = 1 and 16, hd
+     112, and hd 36 (rows that are not 16-byte aligned: byte copies);
+     every call repeated bit-equal;
   4. K2 mpgemm against its plain version for OS, OS with k_fold 2 and 4,
      WS and IS at the path's GEMM shapes and two ragged shapes (37, 1000,
      900: TMA refuses it; 37, 1000, 904: TMA takes it), fp32/bf16; on the
@@ -26,7 +30,9 @@ Phases, in order (each failure is reported and the script exits 1):
   6. scaled-down fp32 qwen2 under both backends: greedy tokens identical
      (weights x5, so that the greedy tokens vary);
   7. each kernel timed at the path's shapes beside its bound, its plain
-     version and one library call that computes the same function;
+     version and one library call that computes the same function (K1
+     and K1-int8 at 32, 512 and 1024 tokens, with the fixed cost and the
+     cost per block fitted over the three);
   8. one full-width decode step profiled (torch.profiler): wall time,
      device time, kernel launches and the heaviest kernels, for the fp
      and the int8 model under both backends.
@@ -319,29 +325,83 @@ def main(argv=None) -> int:
             table[b, -(-lens[b] // bs):] = 0         # NULL past the length
         return [t.to(dtype) for t in (q, k, v)] + [table, lens_t]
 
-    def p_k1():
-        lens = [0, 1, 16, 17, 1024, 300, 511, 64]    # 64 x 16 = full table
+    def int8_kv(shape, seed):
+        """Random int8 K/V pools and fp32 scales of the size amax / 127
+        takes for values of order 1."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k8, v8 = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (0.001 + 0.03 * torch.rand(shape[:3], generator=gen,
+                                            device=dev) for _ in range(2))
+        return k8, v8, ks, vs
+
+    # K1's split grid at its edges (B, KV, G, hd, bs, nbs, lengths, window,
+    # softcap): qwen2 splits 64 positions (split_plan: 4 blocks of 16),
+    # B = 1 splits 32, nbs = 1 is one split; hd 128 with G = 1 and 16 and
+    # hd 112 with G = 1 are qwen1.5's, chatglm3's and zamba2's heads
+    k1_split_cases = {
+        "split_edges": (8, 2, 7, 64, 16, 64,
+                        [63, 64, 65, 127, 128, 129, 0, 1024], None, None),
+        "window_over_splits": (8, 2, 7, 64, 16, 64,
+                               [1024, 700, 300, 129, 64, 5, 0, 1000], 200,
+                               None),
+        "B1": (1, 2, 7, 64, 16, 64, [777], None, 30.0),
+        "nbs1": (8, 2, 7, 64, 16, 1, [0, 1, 15, 16, 8, 3, 2, 16], None,
+                 None),
+        "bs8": (8, 2, 7, 64, 8, 32, [0, 1, 31, 32, 33, 256, 100, 7], 50,
+                None),
+        "hd128_G1": (8, 4, 1, 128, 16, 64,
+                     [0, 1, 63, 64, 65, 1024, 500, 9], None, None),
+        "hd128_G16": (8, 2, 16, 128, 16, 64,
+                      [0, 1, 63, 64, 65, 1024, 500, 9], None, None),
+        "hd112_G1": (4, 2, 1, 112, 16, 32, [0, 33, 64, 512], 100, None),
+        # 72-byte bf16 rows (36 fp32: 144): not all 16-byte aligned
+        "hd36_bytes": (3, 2, 5, 36, 16, 8, [0, 40, 128], None, None),
+    }
+
+    def check_k1(quant: bool):
+        """K1 (or K1-int8) against its plain version: today's qwen2 cases
+        (window and softcap on and off) and the split-grid cases, fp32 and
+        bf16, each call repeated bit-equal, length-0 rows zeros."""
+        name = "paged_decode_int8" if quant else "paged_decode"
+        cases = [(f"{w}/{c}", 8, 2, 7, 64, 16, 64,
+                  [0, 1, 16, 17, 1024, 300, 511, 64], w, c)
+                 for w, c in ((None, None), (200, 30.0))]
+        cases += [(k,) + v for k, v in k1_split_cases.items()]
         out = {}
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            args_ = decode_inputs(dtype, lens)
-            for window, cap in ((None, None), (200, 30.0)):
-                got = PA.paged_decode(*args_, scale=0.125, window=window,
-                                      logit_cap=cap)
-                want = PA.gather_fallback(*args_, scale=0.125,
-                                          window=window, logit_cap=cap)
+            for key, B, KV, G, hd, bs, nbs, lens, window, cap in cases:
+                q, k, v, table, lens_t = decode_inputs(
+                    dtype, lens, B=B, KV=KV, G=G, hd=hd, bs=bs, nbs=nbs)
+                kw = dict(scale=0.125, window=window, logit_cap=cap)
+                if quant:
+                    k, v, kw["k_scale"], kw["v_scale"] = int8_kv(k.shape, 2)
+                got = PA.paged_decode(q, k, v, table, lens_t, **kw)
+                again = PA.paged_decode(q, k, v, table, lens_t, **kw)
+                want = PA.gather_fallback(q, k, v, table, lens_t, **kw)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
-                key = f"{str(dtype)[6:]} window={window} softcap={cap}"
-                out[key] = err
-                sm.kerr["paged_decode"] = max(sm.kerr["paged_decode"], err)
-                ok = err <= tol and not got[0].any() \
+                key = f"{str(dtype)[6:]} {key}"
+                plan = PA.split_plan(B, KV, nbs, bs)
+                out[key] = {"err": err, "split_plan": plan}
+                sm.kerr[name] = max(sm.kerr[name], err)
+                zeros = all(not got[b].any() for b in range(B)
+                            if lens[b] == 0)
+                equal = torch.equal(got, again)
+                ok = err <= tol and zeros and equal \
                     and bool(torch.isfinite(got).all())
-                print(f"K1 {key}: max|err| {err:.3e} (tol {tol}) "
+                print(f"{'K1-int8' if quant else 'K1'} {key} (blocks a "
+                      f"split, splits {plan}): max|err| {err:.3e} (tol "
+                      f"{tol}), repeat bit-equal {equal} "
                       f"{'ok' if ok else 'MISMATCH'}")
                 if not ok:
-                    raise AssertionError(f"K1 {key}: err {err} > {tol} or "
-                                         f"non-zero length-0 row")
-        rep["k1_check"] = out
+                    raise AssertionError(f"{name} {key}: err {err} > {tol},"
+                                         f" non-zero length-0 row or a "
+                                         f"repeat that differs")
+        rep["k1_int8_check" if quant else "k1_check"] = out
+
+    def p_k1():
+        check_k1(False)
 
     # -- 4. K2 against its plain version ------------------------------------
     path_nk = [(896, 896), (128, 896), (4864, 896), (896, 4864),
@@ -434,41 +494,8 @@ def main(argv=None) -> int:
             raise AssertionError("K2: a case took the other route")
 
     # -- 4b. K1-int8 and K3 against their plain versions --------------------
-    def int8_kv(shape, seed):
-        """Random int8 K/V pools and fp32 scales of the size amax / 127
-        takes for values of order 1."""
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        k8, v8 = (torch.randint(-127, 128, shape, generator=gen, device=dev,
-                                dtype=torch.int8) for _ in range(2))
-        ks, vs = (0.001 + 0.03 * torch.rand(shape[:3], generator=gen,
-                                            device=dev) for _ in range(2))
-        return k8, v8, ks, vs
-
     def p_k1_int8():
-        lens = [0, 1, 16, 17, 1024, 300, 511, 64]    # 64 x 16 = full table
-        out = {}
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q, k, _v, table, lens_t = decode_inputs(dtype, lens)
-            k8, v8, ks, vs = int8_kv(k.shape, 2)
-            for window, cap in ((None, None), (200, 30.0)):
-                kw = dict(scale=0.125, window=window, logit_cap=cap,
-                          k_scale=ks, v_scale=vs)
-                got = PA.paged_decode(q, k8, v8, table, lens_t, **kw)
-                want = PA.gather_fallback(q, k8, v8, table, lens_t, **kw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                key = f"{str(dtype)[6:]} window={window} softcap={cap}"
-                out[key] = err
-                sm.kerr["paged_decode_int8"] = max(
-                    sm.kerr["paged_decode_int8"], err)
-                ok = err <= tol and not got[0].any() \
-                    and bool(torch.isfinite(got).all())
-                print(f"K1-int8 {key}: max|err| {err:.3e} (tol {tol}) "
-                      f"{'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    raise AssertionError(f"K1-int8 {key}: err {err} > {tol} "
-                                         f"or non-zero length-0 row")
-        rep["k1_int8_check"] = out
+        check_k1(True)
 
     def quant_inputs(M, N, K, dtype, seed):
         # x ~ N(0, 1/K) as after RMSNorm; the weight quantized per channel
@@ -1414,33 +1441,81 @@ def main(argv=None) -> int:
 
     def p_timing():
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-        # K1: one layer's decode at B=8, 512-token contexts, bf16
-        B, KV, G, hd, bs, T = 8, 2, 7, 64, 16, 512
-        q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B)
-        args_ = (q, k, v, table, lens)
-        kern = time_ms(lambda: PA.paged_decode(*args_, scale=0.125), 200,
-                       flush)
-        plain = time_ms(lambda: PA.gather_fallback(*args_, scale=0.125), 50,
-                        flush)
-        kg = PA.gather_pool_blocks(k, table)[:, :T].permute(0, 2, 1, 3)
-        vg = PA.gather_pool_blocks(v, table)[:, :T].permute(0, 2, 1, 3)
-        kg = kg.repeat_interleave(G, dim=1).contiguous()
-        vg = vg.repeat_interleave(G, dim=1).contiguous()
-        qh = q.reshape(B, KV * G, 1, hd)
+        # K1 and K1-int8: one layer's decode at B=8, bf16 q, contexts of
+        # 32, 512 and 1024 tokens in a 64-entry table (max_len 1024);
+        # SDPA over the pre-gathered, head-expanded KV beside K1 (for
+        # K1-int8 over pre-dequantized bf16 KV: no PyTorch call takes int8
+        # KV with scales).  512 is the row the kernels line reports.
+        B, KV, G, hd, bs, nbs = 8, 2, 7, 64, 16, 64
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = time_ms(lambda: sdpa(qh, kg, vg, scale=0.125), 200, flush)
-        nbytes = 2 * (q.numel() + 2 * B * T * KV * hd + q.numel()) \
-            + 4 * (table.numel() + B)
-        b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * T * hd, "bfloat16")
-        timing["paged_decode"] = {
-            "shape": f"B={B} KV={KV} G={G} hd={hd} bs={bs} len={T} bf16",
-            "ms": kern, "plain_ms": plain, "library_ms": lib,
-            "library": "F.scaled_dot_product_attention over the gathered, "
-                       "head-expanded KV",
-            "bound_ms": b_ms, "bound_by": b_by}
-        print(f"K1 {timing['paged_decode']['shape']}: kernel {kern*1e3:.1f}"
-              f" us, plain {plain*1e3:.1f} us, SDPA {lib*1e3:.1f} us, bound "
-              f"{b_ms*1e3:.2f} us ({b_by})")
+        k1_rows = []
+        for T in (32, 512, 1024):
+            q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B)
+            k8, v8, ks, vs = int8_kv(k.shape, 3)
+            kg, vg = (PA.gather_pool_blocks(x, table)[:, :T]
+                      .permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                      .contiguous() for x in (k, v))
+            qh = q.reshape(B, KV * G, 1, hd)
+            qkw = dict(scale=0.125, k_scale=ks, v_scale=vs)
+            row = {"tokens": T, "blocks": T // bs,
+                   "split_plan": PA.split_plan(B, KV, nbs, bs)}
+            for name, fn, plain_fn, kv_bytes in (
+                    ("paged_decode",
+                     lambda: PA.paged_decode(q, k, v, table, lens,
+                                             scale=0.125),
+                     lambda: PA.gather_fallback(q, k, v, table, lens,
+                                                scale=0.125),
+                     2 * B * T * KV * hd * 2),
+                    ("paged_decode_int8",
+                     lambda: PA.paged_decode(q, k8, v8, table, lens, **qkw),
+                     lambda: PA.gather_fallback(q, k8, v8, table, lens,
+                                                **qkw),
+                     2 * B * T * KV * (hd + 4))):
+                nbytes = 2 * 2 * q.numel() + kv_bytes \
+                    + 4 * (table.numel() + B)
+                b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * T * hd,
+                                      "bfloat16")
+                row[name] = {"ms": time_ms(fn, 200, flush),
+                             "plain_ms": time_ms(plain_fn, 50, flush),
+                             "bound_ms": b_ms, "bound_by": b_by}
+            row["sdpa_ms"] = time_ms(
+                lambda: sdpa(qh, kg, vg, scale=0.125), 200, flush)
+            k1_rows.append(row)
+            print(f"K1 B={B} KV={KV} G={G} hd={hd} bs={bs} len={T} bf16 "
+                  f"(split_plan {row['split_plan']}): kernel "
+                  f"{row['paged_decode']['ms']*1e3:.1f} us, int8 "
+                  f"{row['paged_decode_int8']['ms']*1e3:.1f} us, SDPA "
+                  f"{row['sdpa_ms']*1e3:.1f} us, plain "
+                  f"{row['paged_decode']['plain_ms']*1e3:.1f} / "
+                  f"{row['paged_decode_int8']['plain_ms']*1e3:.1f} us, "
+                  f"bound {row['paged_decode']['bound_ms']*1e3:.2f} / "
+                  f"{row['paged_decode_int8']['bound_ms']*1e3:.2f} us")
+            del kg, vg
+        # fixed cost and cost per block: least squares over the three rows
+        xs = np.array([r["blocks"] for r in k1_rows], dtype=float)
+        fit = {}
+        for name in ("paged_decode", "paged_decode_int8"):
+            ys = np.array([r[name]["ms"] for r in k1_rows]) * 1e3
+            per_block, fixed = np.polyfit(xs, ys, 1)
+            fit[name] = {"fixed_us": fixed, "per_block_us": per_block}
+            print(f"{name}: fixed {fixed:.2f} us + {per_block:.3f} us a "
+                  f"block of {bs} positions (least squares over "
+                  f"{[int(x) for x in xs]} blocks)")
+        timing["k1_rows"] = k1_rows
+        timing["k1_fit"] = fit
+        mid = next(r for r in k1_rows if r["tokens"] == 512)
+        shape = f"B={B} KV={KV} G={G} hd={hd} bs={bs} len=512 bf16"
+        timing["paged_decode"] = dict(
+            mid["paged_decode"], shape=shape, library_ms=mid["sdpa_ms"],
+            library="F.scaled_dot_product_attention over the gathered, "
+                    "head-expanded KV", split_plan=mid["split_plan"])
+        timing["paged_decode_int8"] = dict(
+            mid["paged_decode_int8"], shape=shape + " q, int8 KV",
+            library_ms=None, library="none (no PyTorch call takes int8 KV "
+                                     "with scales)",
+            context_ms=mid["sdpa_ms"],
+            context="SDPA over pre-dequantized bf16 KV (the K1 row)",
+            split_plan=mid["split_plan"])
 
         # K2: every GEMM shape of the path under its scheduled dataflow
         sched = ScheduleCache()
@@ -1486,30 +1561,6 @@ def main(argv=None) -> int:
         head = next(r for r in rows if (r["M"], r["N"]) == (8, 151936))
         timing["mpgemm"] = dict(head, shape="head (8, 151936, 896) bf16 "
                                 "-> fp32", library="torch.matmul (bf16)")
-
-        # K1-int8: the same decode with int8 pools and fp32 scales; no
-        # PyTorch call takes int8 KV with scales (library: none), SDPA over
-        # pre-dequantized bf16 KV is given as context
-        k8, v8, ks, vs = int8_kv(k.shape, 3)
-        qkw = dict(scale=0.125, k_scale=ks, v_scale=vs)
-        kern = time_ms(lambda: PA.paged_decode(q, k8, v8, table, lens, **qkw),
-                       200, flush)
-        plain = time_ms(lambda: PA.gather_fallback(q, k8, v8, table, lens,
-                                                   **qkw), 50, flush)
-        nbytes = 2 * 2 * q.numel() + 2 * B * T * KV * (hd + 4) \
-            + 4 * (table.numel() + B)
-        b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * T * hd, "bfloat16")
-        timing["paged_decode_int8"] = {
-            "shape": f"B={B} KV={KV} G={G} hd={hd} bs={bs} len={T} bf16 q, "
-                     f"int8 KV", "ms": kern, "plain_ms": plain,
-            "library_ms": None, "library": "none (no PyTorch call takes "
-                                           "int8 KV with scales)",
-            "context_ms": timing["paged_decode"]["library_ms"],
-            "context": "SDPA over pre-dequantized bf16 KV (the K1 row)",
-            "bound_ms": b_ms, "bound_by": b_by}
-        print(f"K1-int8 {timing['paged_decode_int8']['shape']}: kernel "
-              f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, bound "
-              f"{b_ms*1e3:.2f} us ({b_by})")
 
         # K3: every int8 projection shape of the path, bf16 x
         lib_fn = getattr(torch, "_weight_int8pack_mm", None)
@@ -1740,10 +1791,14 @@ def main(argv=None) -> int:
                   if e.device_type == DeviceType.CUDA]
             dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
             top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+            k1 = [e for e in ev if "paged_decode" in e.key]
             return {"step_ms": wall, "device_ms": dev_ms,
                     "device_busy_share": dev_ms / wall,
                     "device_kernels": sum(e.count for e in ev),
                     "k5_launches": SSD.launches.count,
+                    # K1 / K1-int8: the split and the combine kernel
+                    "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
+                    "k1_kernels": {e.key[:60]: e.count for e in k1},
                     "top": [(e.key[:60], e.self_device_time_total / 1e3,
                              e.count) for e in top]}
 
@@ -1751,8 +1806,10 @@ def main(argv=None) -> int:
             print(f"[{card}] full-width {name}: {r['step_ms']:.2f} ms "
                   f"wall, {r['device_ms']:.2f} ms on the device "
                   f"({100 * r['device_busy_share']:.0f}% busy), "
-                  f"{r['device_kernels']} kernel launches; top: " + "; ".join(
-                      f"{k} {t:.2f} ms x{c}" for k, t, c in r["top"]))
+                  f"{r['device_kernels']} kernel launches; K1 kernels "
+                  f"{r['k1_ms']:.3f} ms {r['k1_kernels']}; top: "
+                  + "; ".join(f"{k} {t:.2f} ms x{c}"
+                              for k, t, c in r["top"]))
 
         out = {}
         for b, model in (("xla", full), ("scheduled", full),

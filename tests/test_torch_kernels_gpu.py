@@ -102,6 +102,95 @@ def test_paged_decode_int8_kernel_matches_plain(cuda, dtype, tol):
     assert TPA.launches.count == before_fp            # the fp kernel: idle
 
 
+#: K1's split-KV grid at its edges: (B, KV, G, hd, bs, nbs, lengths,
+#: window, softcap).  qwen2 splits 64 positions (4 blocks of 16); B = 1
+#: splits 32; nbs = 1 gives one split; hd 128 with G = 1 and 16 and hd
+#: 112 with G = 1 are qwen1.5's, chatglm3's and zamba2's heads.
+SPLIT_CASES = {
+    "split_edges": (8, 2, 7, 64, 16, 64,
+                    (63, 64, 65, 127, 128, 129, 0, 1024), None, None),
+    "window_over_splits": (8, 2, 7, 64, 16, 64,
+                           (1024, 700, 300, 129, 64, 5, 0, 1000), 200, None),
+    "B1": (1, 2, 7, 64, 16, 64, (777,), None, 30.0),
+    "nbs1": (8, 2, 7, 64, 16, 1, (0, 1, 15, 16, 8, 3, 2, 16), None, None),
+    "bs8": (8, 2, 7, 64, 8, 32, (0, 1, 31, 32, 33, 256, 100, 7), 50, None),
+    "hd128_G1": (8, 4, 1, 128, 16, 64, (0, 1, 63, 64, 65, 1024, 500, 9),
+                 None, None),
+    "hd128_G16": (8, 2, 16, 128, 16, 64, (0, 1, 63, 64, 65, 1024, 500, 9),
+                  None, None),
+    "hd112_G1": (4, 2, 1, 112, 16, 32, (0, 33, 64, 512), 100, None),
+    # 36 bf16 = 72-byte rows: not 16-byte aligned, staged by byte copies
+    "hd36_bytes": (3, 2, 5, 36, 16, 8, (0, 40, 128), None, None),
+}
+
+
+def _split_inputs(dev, dtype, quant, B, KV, G, hd, bs, nbs, lens, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    nb = 1 + B * nbs
+    q = torch.randn(B, KV, G, hd, generator=gen).to(dev, dtype)
+    kw = {}
+    if quant:
+        k, v = (torch.randint(-127, 128, (nb, bs, KV, hd), generator=gen,
+                              dtype=torch.int8).to(dev) for _ in range(2))
+        kw = {n: (0.001 + 0.03 * torch.rand(nb, bs, KV, generator=gen)
+                  ).to(dev) for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(nb, bs, KV, hd, generator=gen).to(dev, dtype)
+                for _ in range(2))
+    table = (1 + torch.randperm(nb - 1, generator=gen)[:B * nbs]
+             ).reshape(B, nbs).int()
+    for b in range(B):
+        table[b, -(-lens[b] // bs):] = 0             # NULL past the length
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    return [q, k, v, table.to(dev), lens_t.to(dev)], kw
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_decode_split_grid_matches_plain(cuda, dtype, tol, quant,
+                                               case):
+    """K1 / K1-int8 on the split grid ``split_plan`` gives: within the
+    tolerance of the plain version, zeros for length-0 rows, and a
+    repeated call bit-equal (a fixed-order combine, no atomics)."""
+    B, KV, G, hd, bs, nbs, lens, window, cap = SPLIT_CASES[case]
+    args, kw = _split_inputs(cuda, dtype, quant, B, KV, G, hd, bs, nbs,
+                             lens)
+    kw.update(scale=hd ** -0.5, window=window, logit_cap=cap)
+    counter = TPA.launches_int8 if quant else TPA.launches
+    before = counter.count
+    got = TPA.paged_decode(*args, **kw)
+    again = TPA.paged_decode(*args, **kw)
+    want = TPA.gather_fallback(*args, **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got, again)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not got[b].any()
+
+
+def test_paged_decode_reads_no_device_value(cuda):
+    """The wrapper sizes its grid from shapes alone: no host sync, for
+    both pool types (what capturing the decode step in a graph needs)."""
+    calls = [_split_inputs(cuda, torch.bfloat16, quant, 8, 2, 7, 64, 16, 64,
+                           (0, 1, 63, 64, 65, 127, 128, 1024))
+             for quant in (False, True)]
+    for args, kw in calls:                  # build and load first
+        TPA.paged_decode(*args, scale=0.125, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args, kw in calls:
+            TPA.paged_decode(*args, scale=0.125, window=300, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype):
     """Decode and chunk shapes of the path, ragged M, and odd N/K that
