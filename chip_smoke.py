@@ -34,20 +34,29 @@ Phases, in order (each failure is reported and the script exits 1):
      and K1-int8 at 32, 512 and 1024 tokens, with the fixed cost and the
      cost per block fitted over the three);
   8. one full-width decode step profiled (torch.profiler): wall time,
-     device time, kernel launches and the heaviest kernels, for the fp
-     and the int8 model under both backends.
+     device time, kernel launches, the heaviest kernels and K1's and
+     K3's share, for the fp and the int8 model under both backends, and
+     one int8 scheduled chunk step (8 slots x 32 rows).
 
 The int8 quantized path adds, after phase 4:
 
   K1-int8 against its plain version on the cases of phase 3 with int8
   pools and fp32 scales; K3 (quant_matmul) against its plain version at
-  every projection shape of the path (M = 8 and 256, and M that are not
-  tile multiples), x in fp32 and bf16; and after phase 6:
+  every projection shape of the path at M = 1, 8, 16, 64, 65, 256 and
+  2048, ragged N and K that TMA takes and that it refuses, K not a
+  multiple of 64 and an unaligned x, x in fp32 and bf16, and every
+  chunk tile of the Hopper route asked for at (2048, 4864, 896) and
+  (300, 1008, 904): each case on the
+  route ``quant_matmul_route`` names (bf16 TMA can describe: Hopper;
+  fp32 and the rest: CUDA cores), every bf16 case repeated bit-equal, the
+  calls under ``torch.cuda.set_sync_debug_mode("error")``; and after
+  phase 6:
 
   the int8 main path: the same model and requests as phase 5 with
   ``quant_serving`` (int8 weights, int8 KV blocks), under both backends,
-  with per-run launch counts (K3 168 a step under scheduled and 0 under
-  xla, K1-int8 24 a decode step, the fp K1 never), the pool audit after
+  with per-run launch counts (K3 168 a step under scheduled, every one on
+  the Hopper route, and 0 under xla, K1-int8 24 a decode step, the fp K1
+  never), the pool audit after
   every step, no schedule-cache miss and the KV bytes against the fp
   pool; and the scaled-down fp32 int8 model at weights x5: tokens
   identical across backends, agreement with the fp engine reported, and
@@ -129,8 +138,13 @@ adds, after K5:
 
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
-the CUDA-core route.  Phase 7 times K2 at qwen2's and mamba2's GEMMs
-(M = 8, 256 and 2048) with ``torch.matmul`` beside each.
+the CUDA-core route; the int8 main path does the same for K3
+(``quant_matmul.launches_by_route``).  Phase 7 times K2 at qwen2's and
+mamba2's GEMMs (M = 8, 256 and 2048) with ``torch.matmul`` beside each,
+and K3 at the int8 path's eight shapes with its route, tile and cluster
+ranks, ``torch._weight_int8pack_mm`` and ``torch.mm`` over the
+dequantized weight, the timing method's floor and the host time of a
+call (``launch/quant_tiles.py``).
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -144,7 +158,6 @@ import argparse
 import dataclasses
 import itertools
 import json
-import subprocess
 import sys
 import time
 import traceback
@@ -152,10 +165,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
-
-#: H100 SXM data-sheet peaks (dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
 K1_REPLACES = "src/repro/kernels/paged_attention.py:123"
@@ -171,17 +180,6 @@ K5_REPLACES = "src/repro/kernels/ssd.py:52"
 # K6 lives in K2's source; it replaces _partial_kernel (:148) and
 # _os_fold_spill_kernel (:157)
 K6_REPLACES = "src/repro/kernels/mpgemm.py:148"
-
-
-def smi_line() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"nvidia-smi unavailable: {e}"
-    return out.splitlines()[0] if out else "nvidia-smi printed nothing"
 
 
 class Smoke:
@@ -207,38 +205,6 @@ class Smoke:
         dt = time.perf_counter() - t0
         self.report["phases"][name] = {"status": status, "seconds": dt}
         print(f"== {name}: {status} ({dt:.1f} s)", flush=True)
-
-
-def time_ms(fn, iters: int, flush=None, sleep_cycles: int = 1_000_000
-            ) -> float:
-    """Median device time of one call: CUDA events around each call, the
-    L2-flush write (when given) between calls outside the events, and a
-    device-side sleep of ``sleep_cycles`` before the start event so that
-    the device is still busy while the host enqueues the call -- host
-    launch overhead then falls outside the measured interval (a call of
-    many small launches needs a longer sleep)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for s, e in ev:
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(sleep_cycles)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    ts = sorted(s.elapsed_time(e) for s, e in ev)
-    return ts[len(ts) // 2]
-
-
-def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main(argv=None) -> int:
@@ -276,6 +242,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import ref as KREF
     from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch import quant_tiles as QT
+    from repro_torch.launch.timing import bound_ms, card_line, time_ms
     from repro_torch.models import network as N
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
@@ -285,7 +253,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sm = Smoke(args)
     rep = sm.report
-    card = smi_line()
+    card = card_line()
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. device ---------------------------------------------------------
@@ -506,35 +474,78 @@ def main(argv=None) -> int:
             0.02 * torch.randn(K, N, generator=gen, device=dev))
         return x, w8, sc
 
-    k3_shapes = [(M, N, K) for M in (8, 256) for N, K in path_nk[:4]]
+    def offset_x(M, K, dtype, seed):
+        """x (M, K) contiguous, its base one element past an allocation's
+        start: off 16-byte alignment, so TMA refuses it."""
+        x, _w, _s = quant_inputs(M, 16, K, dtype, seed)
+        buf = torch.empty(M * K + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(x.reshape(-1))
+        return buf[1:].view(M, K)
 
     def p_k3():
-        shapes = k3_shapes + [(5, 896, 896), (37, 4864, 896),
-                              (300, 128, 896)]     # M off the tile grid
+        # the path's (N, K) at M = 1 .. 2048; ragged N and K that TMA takes
+        # (N a multiple of 16, K of 8) and that it refuses; K not a
+        # multiple of 64; M off the tile grid; every chunk tile asked for
+        shapes = [(M, N, K) for M in (1, 8, 16, 64, 65, 256, 2048)
+                  for N, K in path_nk[:4]]
+        shapes += [(37, 1008, 904), (8, 896, 1000), (300, 4864, 904),
+                   (37, 1000, 904), (37, 1008, 900), (300, 131, 77),
+                   (5, 896, 896)]
+        cases = [(s_, d, False, None) for s_ in shapes
+                 for d in (torch.float32, torch.bfloat16)]
+        cases += [((8, 896, 896), torch.bfloat16, True, None),  # unaligned x
+                  ((256, 896, 904), torch.bfloat16, True, None)]
+        cases += [(s_, torch.bfloat16, False, t)
+                  for s_ in ((2048, 4864, 896), (300, 1008, 904))
+                  for t in QM.QUANT_TILES if t[0] >= 64]
         rows, worst = [], {}
-        for (M, N, K), dtype in [(s_, d) for s_ in shapes
-                                 for d in (torch.float32, torch.bfloat16)]:
+        for (M, N, K), dtype, unaligned, tile in cases:
             x, w8, sc = quant_inputs(M, N, K, dtype, M + N + K)
-            got = QM.quant_matmul(x, w8, sc)
+            if unaligned:
+                x = offset_x(M, K, dtype, M + N + K)
+            tma = dtype == torch.bfloat16 and N % 16 == 0 and K % 8 == 0 \
+                and not unaligned
+            want_route = "hopper" if tma else "cuda_core"
+            route = QM.quant_matmul_route(x, w8)
+            plan = QM.quant_plan(M, N, K, route, tile)
+            before = dict(QM.launches_by_route)
+            torch.cuda.set_sync_debug_mode("error")   # no device read
+            try:
+                got = QM.quant_matmul(x, w8, sc, tile=tile)
+                again = QM.quant_matmul(x, w8, sc, tile=tile) \
+                    if dtype == torch.bfloat16 else got
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             want = QM.quant_matmul_ref(x, w8, sc)
             torch.cuda.synchronize()
+            ran = {r: QM.launches_by_route[r] - before[r] for r in QM.ROUTES}
             diff = (got - want).abs()
             rel = (diff / (1.0 + want.abs())).max().item()
             err = diff.max().item()
+            same = bool(torch.equal(got, again))
             sm.kerr["quant_matmul"] = max(sm.kerr["quant_matmul"], err)
-            key = str(dtype)[6:]
-            worst[key] = max(worst.get(key, 0.0), rel)
-            rows.append({"M": M, "N": N, "K": K, "dtype": key,
-                         "tile": list(QM.TILES[QM.tile_for(M, N)]),
-                         "max_abs_err": err, "max_rel_err": rel,
-                         "ok": rel <= 1e-4 and got.dtype == torch.float32})
+            key = f"{str(dtype)[6:]} {route}"
+            w_, n_ = worst.get(key, (0.0, 0))
+            worst[key] = (max(w_, rel), n_ + 1)
+            rows.append({"M": M, "N": N, "K": K, "dtype": str(dtype)[6:],
+                         "unaligned_x": unaligned, "route": route,
+                         "tile": list(plan.tile), "ranks": plan.ranks,
+                         "launched": ran, "max_abs_err": err,
+                         "max_rel_err": rel, "bit_equal_repeat": same,
+                         "ok": rel <= 1e-4 and got.dtype == torch.float32
+                         and same and route == want_route
+                         and ran[route] == (2 if got is not again else 1)})
+            del x, w8, sc, got, again, want
         rep["k3_check"] = rows
-        for key, rel in worst.items():
+        for key, (rel, n_) in worst.items():
             print(f"K3 x {key}: worst |err|/(1+|ref|) {rel:.3e} over "
-                  f"{len(shapes)} shapes")
+                  f"{n_} shapes")
         bad = [r for r in rows if not r["ok"]]
+        routes = {r: sum(x_["route"] == r for x_ in rows) for r in QM.ROUTES}
         print(f"K3: {len(rows) - len(bad)}/{len(rows)} cases within "
-              f"|err|/(1+|ref|) <= 1e-4 (fp32 out)")
+              f"|err|/(1+|ref|) <= 1e-4 (fp32 out) on the route "
+              f"quant_matmul_route names, bf16 repeats bit-equal, no device "
+              f"read (sync debug mode 'error'); routes {routes}")
         if bad:
             raise AssertionError(f"K3 mismatches: {bad[:3]}")
 
@@ -837,7 +848,7 @@ def main(argv=None) -> int:
         PA.launches.reset()
         PA.launches_int8.reset()
         MP.reset_launches()
-        QM.launches.reset()
+        QM.reset_launches()
         SSD.launches.reset()
         t0 = time.perf_counter()
         res = eng.run(reqs)
@@ -850,6 +861,7 @@ def main(argv=None) -> int:
                   "mpgemm_spill": MP.spill_launches.count,
                   "paged_decode_int8": PA.launches_int8.count,
                   "quant_matmul": QM.launches.count,
+                  "quant_matmul_by_route": dict(QM.launches_by_route),
                   "ssd_intra": SSD.launches.count}
         return eng, sorted(res, key=lambda r: r.rid), wall, counts
 
@@ -1049,6 +1061,9 @@ def main(argv=None) -> int:
             if got != want or r["decode_steps"] == 0:
                 raise AssertionError(f"int8 {b} launches {got}, expected "
                                      f"{want}")
+            if c["quant_matmul_by_route"]["cuda_core"]:
+                raise AssertionError(f"int8 {b}: a bf16 K3 call took the "
+                                     f"CUDA-core route: {c}")
         if q_alloc * 2 * full.hd != fp_alloc * (full.hd + 4):
             raise AssertionError(f"int8 KV bytes {q_alloc} vs bf16 "
                                  f"{fp_alloc}: not (hd + 4) / (2 hd)")
@@ -1562,46 +1577,24 @@ def main(argv=None) -> int:
         timing["mpgemm"] = dict(head, shape="head (8, 151936, 896) bf16 "
                                 "-> fp32", library="torch.matmul (bf16)")
 
-        # K3: every int8 projection shape of the path, bf16 x
-        lib_fn = getattr(torch, "_weight_int8pack_mm", None)
-        rows = []
-        for M, N_, K_ in k3_shapes:
-            x, w8, sc = quant_inputs(M, N_, K_, torch.bfloat16, 11)
-            kern = time_ms(lambda: QM.quant_matmul(x, w8, sc), 100, flush)
-            plain = time_ms(lambda: QM.quant_matmul_ref(x, w8, sc), 25,
-                            flush)
-            lib, lib_name = None, "none"
-            if lib_fn is not None:
-                # one call taking the int8 weight and a bf16 activation
-                wt, sb = w8.t().contiguous(), sc.to(torch.bfloat16)
-                try:
-                    got = lib_fn(x, wt, sb).float()
-                    want = QM.quant_matmul_ref(x, w8, sc)
-                    if ((got - want).abs() / (1 + want.abs())).max() < 2e-2:
-                        lib = time_ms(lambda: lib_fn(x, wt, sb), 100, flush)
-                        lib_name = "torch._weight_int8pack_mm"
-                    else:
-                        lib_name = "none (_weight_int8pack_mm disagrees)"
-                except (RuntimeError, NotImplementedError) as e:
-                    lib_name = f"none (_weight_int8pack_mm: {str(e)[:80]})"
-            wd = (w8.to(torch.bfloat16) * sc.to(torch.bfloat16)).contiguous()
-            ctx = time_ms(lambda: torch.mm(x, wd), 100, flush)
-            nbytes = 2 * M * K_ + K_ * N_ + 4 * N_ + 4 * M * N_
-            b_ms, b_by = bound_ms(nbytes, 2 * M * N_ * K_, "bfloat16")
-            rows.append({"M": M, "N": N_, "K": K_,
-                         "tile": list(QM.TILES[QM.tile_for(M, N_)]),
-                         "ms": kern, "plain_ms": plain, "library_ms": lib,
-                         "library": lib_name, "context_ms": ctx,
-                         "context": "torch.mm over a pre-dequantized bf16 "
-                                    "weight",
-                         "bound_ms": b_ms, "bound_by": b_by})
-            print(f"K3 bf16 ({M}, {N_}, {K_}) tile "
-                  f"{rows[-1]['tile'][0]}x{rows[-1]['tile'][1]}: kernel "
-                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, library "
-                  f"{'-' if lib is None else f'{lib*1e3:.1f} us'} "
-                  f"({lib_name}), torch.mm dequantized {ctx*1e3:.1f} us, "
-                  f"bound {b_ms*1e3:.2f} us ({b_by})")
+        # K3: every int8 projection shape of the path, bf16 x, with its
+        # route and plan (launch/quant_tiles.py), and the host time a call
+        rows = QT.measure(QT.SHAPES, dev, flush)
+        for r in rows:
+            print(f"[{card}] " + QT.describe(r))
+        floor = QT.floor_ms(dev, flush)
+        print(f"[{card}] timing floor (one-element add_, same method): "
+              f"{floor * 1e3:.1f} us")
+        host = QT.host_row(dev)
+        print(f"[{card}] K3 host time a call at (8, 896, 896), back to "
+              f"back: quant_matmul {host['quant_matmul_us']:.1f} us (fp32 "
+              f"x, CUDA-core route: {host['quant_matmul_fp32_x_us']:.1f} us), "
+              f"ops.quant_matmul (scheduled) "
+              f"{host['ops_quant_matmul_us']:.1f} us, torch.matmul "
+              f"{host['torch_matmul_us']:.1f} us")
         timing["quant_matmul_shapes"] = rows
+        timing["quant_matmul_host"] = host
+        timing["floor_ms"] = floor
         timing["quant_matmul"] = dict(rows[3], shape="decode down projection "
                                       "(8, 896, 4864) bf16 x -> fp32")
 
@@ -1792,6 +1785,8 @@ def main(argv=None) -> int:
             dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
             top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
             k1 = [e for e in ev if "paged_decode" in e.key]
+            k3 = [e for e in ev if "quant_hopper" in e.key
+                  or "quant_matmul_core" in e.key]
             return {"step_ms": wall, "device_ms": dev_ms,
                     "device_busy_share": dev_ms / wall,
                     "device_kernels": sum(e.count for e in ev),
@@ -1799,6 +1794,8 @@ def main(argv=None) -> int:
                     # K1 / K1-int8: the split and the combine kernel
                     "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
                     "k1_kernels": {e.key[:60]: e.count for e in k1},
+                    "k3_ms": sum(e.self_device_time_total for e in k3) / 1e3,
+                    "k3_kernels": {e.key[:60]: e.count for e in k3},
                     "top": [(e.key[:60], e.self_device_time_total / 1e3,
                              e.count) for e in top]}
 
@@ -1807,7 +1804,8 @@ def main(argv=None) -> int:
                   f"wall, {r['device_ms']:.2f} ms on the device "
                   f"({100 * r['device_busy_share']:.0f}% busy), "
                   f"{r['device_kernels']} kernel launches; K1 kernels "
-                  f"{r['k1_ms']:.3f} ms {r['k1_kernels']}; top: "
+                  f"{r['k1_ms']:.3f} ms {r['k1_kernels']}; K3 kernels "
+                  f"{r['k3_ms']:.3f} ms {r['k3_kernels']}; top: "
                   + "; ".join(f"{k} {t:.2f} ms x{c}"
                               for k, t, c in r["top"]))
 
@@ -1827,6 +1825,25 @@ def main(argv=None) -> int:
                 eng.step()            # every step is a decode step
             out[b] = measure(eng, 5)
             show(f"decode step, {b}", out[b])
+        # one int8 scheduled chunk step: 8 slots x 32 prompt rows (the
+        # engine's default prefill_chunk); prompts of 2.5 chunks, step 1
+        # timed, step 2 profiled
+        cfg = dataclasses.replace(full_quant, gemm_backend="scheduled")
+        eng = ContinuousEngine(cfg, params_quant(), slots=8, max_len=1024,
+                               device=dev)
+        plen = 5 * eng.prefill_chunk // 2
+        for r in requests(np.random.default_rng(7), 8, plen, plen + 1, 8,
+                          full.vocab):
+            eng.submit(r)
+        chunks0 = eng.chunk_steps
+        out["int8 scheduled chunk"] = measure(eng, 1)
+        show("int8 chunk step (8 x 32 rows), scheduled",
+             out["int8 scheduled chunk"])
+        ran = eng.chunk_steps - chunks0
+        if ran != 2 or eng.steps != 0:
+            raise AssertionError(f"int8 chunk profile: {ran} chunk and "
+                                 f"{eng.steps} decode steps, expected 2 "
+                                 f"chunk steps")
         # mamba2: prompts of three chunks (2.5 x 256 tokens); step 1
         # (chunk) is timed, step 2 (chunk) profiled, step 3 ends the
         # prefill, then decode steps

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function and is compiled
 by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go
 to ``kernels/_build/`` (listed in ``.gitignore``) under a name that
-carries a digest of the source and the flags, so an edited source is
+carries a digest of the source, of every ``csrc`` header it includes
+(``hopper.cuh``) and of the flags, so an edited source or header is
 rebuilt and an unchanged one is reused.  Sources are compiled in
 parallel, one ``nvcc`` each, at first use -- never at import.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,29 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc`` it includes,
+    directly or through another header, in the order first reached."""
+    order, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in order:
+            continue
+        order.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return order
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -19,7 +19,6 @@ card; prints the card's name and one line a shape.
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
@@ -28,39 +27,11 @@ from repro_torch.core.tiling import HOPPER_STAGE_K, HOPPER_TILES
 from repro_torch.device import resolve_device
 from repro_torch.kernels import mpgemm as MP
 from repro_torch.kernels import ops as OPS
+from repro_torch.launch.timing import host_us, time_ms
 
 SHAPES = ((256, 896, 896), (256, 4864, 896), (256, 896, 4864),
           (512, 2560, 5120), (1024, 10576, 2560), (2048, 10576, 2560),
           (2048, 2560, 5120), (2048, 50280, 2560))
-
-
-def time_us(fn, iters: int, flush: torch.Tensor) -> float:
-    """Median device time of one call (us): CUDA events around each
-    call, the L2 flushed before it."""
-    for _ in range(3):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for s, e in ev:
-        flush.zero_()
-        torch.cuda._sleep(1_000_000)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in ev)[iters // 2] * 1e3
-
-
-def host_us(fn, calls: int = 500) -> float:
-    """Wall time a call of ``calls`` back-to-back calls (us)."""
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def main(argv=None) -> None:
@@ -86,12 +57,12 @@ def main(argv=None) -> None:
             else [t for t in HOPPER_TILES if t[0] >= 64]
         cells = []
         for bm, bn in tiles:
-            us = time_us(lambda: MP.mpgemm(
+            us = time_ms(lambda: MP.mpgemm(
                 a, b, dataflow=df, bm=bm, bn=bn, bk=HOPPER_STAGE_K,
-                out_dtype=torch.bfloat16), 20, flush)
+                out_dtype=torch.bfloat16), 20, flush) * 1e3
             cells.append(f"{bm}x{bn}{'*' if (bm, bn) == picked else ''} "
                          f"{us:.1f}")
-        lib = time_us(lambda: torch.matmul(a, b), 20, flush)
+        lib = time_ms(lambda: torch.matmul(a, b), 20, flush) * 1e3
         print(f"({M}, {N}, {K}) {df.value}: " + ", ".join(cells)
               + f" us; torch.matmul {lib:.1f} us  (* = plan_blocks)")
     a = torch.randn(8, 896, device=dev).bfloat16()

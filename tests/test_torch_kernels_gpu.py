@@ -193,23 +193,50 @@ def test_paged_decode_reads_no_device_value(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype):
-    """Decode and chunk shapes of the path, ragged M, and odd N/K that
-    take the scalar-copy path."""
+    """Both routes (fp32 x: CUDA cores; bf16 x: Hopper where TMA takes the
+    layout) at M = 1 .. 2048 on the path's shapes, ragged M, N and K,
+    odd N/K that take the scalar-copy path; bf16 repeats bit-equal, no
+    device read, and each launch counted on its route."""
     gen = torch.Generator().manual_seed(5)
-    shapes = [(8, 896, 896), (8, 128, 896), (8, 896, 4864), (5, 100, 200),
-              (256, 4864, 896), (37, 1000, 900), (300, 131, 77)]
-    before = TQM.launches.count
+    shapes = [(M, N, K) for M in (1, 8, 64, 65, 256, 2048)
+              for N, K in ((896, 896), (128, 896), (896, 4864))]
+    shapes += [(5, 100, 200), (256, 4864, 896), (37, 1000, 900),
+               (37, 1008, 904), (300, 131, 77)]
+    TQM.reset_launches()
+    want_routes = {r: 0 for r in TQM.ROUTES}
     for M, N, K in shapes:
         x = (torch.randn(M, K, generator=gen) * K ** -0.5).to(cuda, dtype)
         w = torch.randint(-127, 128, (K, N), generator=gen,
                           dtype=torch.int8).to(cuda)
         sc = (torch.rand(N, generator=gen) * 0.02).to(cuda)
-        got = TQM.quant_matmul(x, w, sc)
+        route = TQM.quant_matmul_route(x, w)
+        tma = dtype == torch.bfloat16 and N % 16 == 0 and K % 8 == 0
+        assert route == ("hopper" if tma else "cuda_core"), (M, N, K)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = TQM.quant_matmul(x, w, sc)
+            again = TQM.quant_matmul(x, w, sc)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want_routes[route] += 2
         want = TQM.quant_matmul_ref(x, w, sc)
         torch.cuda.synchronize()
         rel = ((got - want).abs() / (1 + want.abs())).max().item()
         assert got.dtype == torch.float32 and rel <= 1e-4, (M, N, K, rel)
-    assert TQM.launches.count == before + len(shapes)
+        assert torch.equal(got, again), (M, N, K)
+    assert TQM.launches_by_route == want_routes
+    assert TQM.launches.count == 2 * len(shapes)
+    if dtype == torch.bfloat16:     # every chunk tile, asked for
+        x = (torch.randn(300, 904, generator=gen) / 30).to(cuda, dtype)
+        w = torch.randint(-127, 128, (904, 1008), generator=gen,
+                          dtype=torch.int8).to(cuda)
+        sc = (torch.rand(1008, generator=gen) * 0.02).to(cuda)
+        want = TQM.quant_matmul_ref(x, w, sc)
+        for tile in [t for t in TQM.QUANT_TILES if t[0] >= 64]:
+            got = TQM.quant_matmul(x, w, sc, tile=tile)
+            rel = ((got - want).abs() / (1 + want.abs())).max().item()
+            assert rel <= 1e-4, (tile, rel)
+            assert torch.equal(got, TQM.quant_matmul(x, w, sc, tile=tile))
 
 
 @pytest.mark.parametrize("df", [Dataflow.OS, Dataflow.WS, Dataflow.IS])

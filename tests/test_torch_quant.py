@@ -43,6 +43,7 @@ from repro_torch.core.dataflow import Dataflow
 from repro_torch.core.pgemm import PGEMM
 from repro_torch.core.precision import INT8
 from repro_torch.core.scheduler import ScheduleCache
+from repro_torch.core.tiling import MAX_CLUSTER
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import quant_matmul as TQM
@@ -211,17 +212,18 @@ def test_ops_quant_matmul_logs_like_reference():
 
 
 def test_k3_tile_choice_fills_the_card():
-    """Decode GEMMs (M = 8) take a narrow tile with at least 132 CTAs
-    wherever N allows it; chunk GEMMs take a wide tile."""
-    def ctas(M, N):
-        bm, bn = TQM.TILES[TQM.tile_for(M, N)]
-        return -(-M // bm) * -(-N // bn)
-    for N in (896, 4864):
-        assert TQM.TILES[TQM.tile_for(8, N)][0] == 8 and ctas(8, N) >= 132
-    assert TQM.tile_for(8, 128) == len(TQM.TILES) - 1    # the narrowest
-    for N in (896, 4864):
-        assert TQM.TILES[TQM.tile_for(256, N)][0] >= 32 \
-            and ctas(256, N) >= 132
+    """Decode GEMMs (M = 8) take the 8-row Hopper tile and split K over a
+    cluster until about two CTAs an SM stream the weight; chunk GEMMs
+    take a chunk tile with at least 56 CTAs; the CUDA-core route's decode
+    tile is 16 weight columns wide."""
+    for N, K in ((896, 896), (896, 4864), (4864, 896)):
+        p = TQM.quant_plan(8, N, K)
+        assert p.tile == (8, 64) and 100 <= p.ctas <= 2 * 132
+        assert TQM.quant_plan(8, N, K, "cuda_core").tile == (8, 16)
+    assert TQM.quant_plan(8, 128, 896).ranks == MAX_CLUSTER
+    for N, K in ((896, 896), (896, 4864), (4864, 896)):
+        p = TQM.quant_plan(256, N, K)
+        assert p.tile[0] >= 64 and p.ctas >= 56
 
 
 def _int8_pools(seed, B=5, KV=2, G=3, hd=32, nb=20, bs=8, nbs=6,
