@@ -89,7 +89,12 @@ The Mamba2 (SSD) path adds, after K4:
   atol = 2e-4 at G in {1, 640}, Q in {32, 256}, P = 64, N = 128, a ragged
   case, the reference test's two shapes, a case whose cums fall by 300
   across the chunk (every masked exponent overflows exp: no NaN may
-  appear) and a case with dt = 0 on a pad tail; then the port's
+  appear) and a case with dt = 0 on a pad tail; the grouped entry
+  ``ssd_intra_chunked`` (the path's call: x, dt, cums in (B, nc, Q, H, .),
+  B and C per group) at full width (B 8, H 80, G 1, Q 256 and 32), with
+  G = 2 and a ragged head block, cums falling by 300, a 100-row dt = 0
+  tail, ragged Q, 4-byte copies and strided views, each launched twice
+  and bit-equal; then the port's
   ``ssd_chunked`` (K5 inside) against a sequential fp64 recurrence at
   H = 80, P = 64, N = 128, S = 512 (two chunks of 256) with an initial
   state.  After the int8 main path:
@@ -104,8 +109,10 @@ The Mamba2 (SSD) path adds, after K4:
   mamba2_scaled_down_fp32: scaled-down mamba2 (fp32, init-scale weights)
   at ``prefill_chunk`` 32 and 64: greedy tokens identical across
   backends, at least 4 distinct tokens a request.  Phase 7 times K5 at
-  G = 640, Q = 32 and 256, and phase 8 profiles a full-width mamba2
-  decode step and prefill chunk step under both backends.
+  G = 640, Q = 32 and 256 (per-head layout) and at the path's grouped
+  call (B 8, H 80, G 1, Q 256 and 32), and phase 8 profiles a full-width
+  mamba2 decode step and prefill chunk step under both backends, with
+  K5's device time and the aten ops behind the chunk step's device time.
 
 The spill epilogue (K6, the partial-plane baseline of the scheduled GEMM)
 adds, after K5:
@@ -243,7 +250,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ref as KREF
     from repro_torch.kernels import ssd as SSD
     from repro_torch.launch import quant_tiles as QT
-    from repro_torch.launch.timing import bound_ms, card_line, time_ms
+    from repro_torch.launch import ssd_tiles as SSD_T
+    from repro_torch.launch.timing import (bound_ms, card_line, kernel_ms,
+                                           time_ms, top_ops)
     from repro_torch.models import network as N
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
@@ -668,6 +677,43 @@ def main(argv=None) -> int:
                   f"{masked:.1f}{' (exp overflows)' if masked > 88.7 else ''}"
                   f", finite {bool(torch.isfinite(got).all())} "
                   f"{'ok' if ok else 'MISMATCH'}")
+        # the grouped entry (the path's call) at full width and its edges;
+        # every case launched twice, bit-equal
+        grouped = [("grouped B=8 H=80 G=1 Q=256", (8, 1, 256, 80, 1, 64, 128),
+                    {}),
+                   ("grouped Q=32", (8, 1, 32, 80, 1, 64, 128), {}),
+                   ("grouped G=2, ragged head block",
+                    (8, 2, 256, 26, 2, 64, 128), {}),
+                   ("grouped cums fall by 300", (8, 1, 256, 80, 1, 64, 128),
+                    {"fall": 300.0}),
+                   ("grouped dt = 0 on a 100-row pad tail",
+                    (8, 1, 256, 80, 1, 64, 128), {"pad": 100}),
+                   ("grouped ragged Q", (2, 1, 100, 8, 2, 24, 40), {}),
+                   ("grouped scalar copies", (2, 1, 100, 8, 2, 18, 10), {}),
+                   ("grouped strided views", (2, 2, 256, 80, 1, 64, 128),
+                    {"strided": True})]
+        for n, (label, shape, kw) in enumerate(grouped):
+            args_ = SSD_T.path_inputs(shape[2], 60 + n, dev, *shape[:2],
+                                      *shape[3:], **kw)
+            got = SSD.ssd_intra_chunked(*args_)
+            again = SSD.ssd_intra_chunked(*args_)
+            want = SSD.ssd_intra_chunked_ref(*args_)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            sm.kerr["ssd_intra"] = max(sm.kerr["ssd_intra"], err)
+            plan = SSD.ssd_plan(*shape[:5])
+            ok = bool(torch.isfinite(got).all()) and bool(torch.allclose(
+                got, want, rtol=2e-4, atol=2e-4)) and torch.equal(got, again)
+            rows.append({"case": label, "shape": list(shape), "kw": kw,
+                         "head_block": plan.head_block, "grid": plan.grid,
+                         "max_abs_err": err,
+                         "max_abs_y": want.abs().max().item(),
+                         "bit_equal_repeat": torch.equal(got, again),
+                         "ok": ok})
+            print(f"K5 {label} (B, nc, Q, H, G, P, N) = {shape}, head block "
+                  f"{plan.head_block}, grid {plan.grid}: max|err| {err:.3e} "
+                  f"(max|y| {rows[-1]['max_abs_y']:.1f}), repeat bit-equal "
+                  f"{rows[-1]['bit_equal_repeat']} {'ok' if ok else 'MISMATCH'}")
         # ssd_chunked with K5 inside against the sequential recurrence
         gen = torch.Generator(device=dev).manual_seed(7)
         B, S, H, P, G, N_, Q = 1, 512, 80, 64, 1, 128, 256
@@ -700,7 +746,8 @@ def main(argv=None) -> int:
             "k5_launches": k5_calls, "ok": chunked_ok}}
         bad = [r["case"] for r in rows if not r["ok"]]
         print(f"K5: {len(rows) - len(bad)}/{len(rows)} cases within rtol = "
-              f"atol = 2e-4 of the plain version, all finite; ssd_chunked "
+              f"atol = 2e-4 of the plain version, all finite, grouped "
+              f"repeats bit-equal; ssd_chunked "
               f"(H={H}, P={P}, N={N_}, S={S}, two chunks of {Q}, with h0) "
               f"against the fp64 recurrence: y max|err| {y_err:.2e}, final "
               f"state {h_err:.2e} (tol 2e-3), K5 launches {k5_calls}")
@@ -1691,9 +1738,9 @@ def main(argv=None) -> int:
             bt = b.transpose(1, 2)
             ctx = time_ms(lambda: torch.bmm(torch.bmm(c, bt) * ldt, x), 50,
                           flush)
-            nbytes = 4 * (2 * G * Q * P + 2 * G * Q + 2 * G * Q * N_)
-            flops = Q * (Q + 1) // 2 * 2 * (N_ + P) * G
-            b_ms, b_by = bound_ms(nbytes, flops, "float32")
+            # restated as the path's row: 3xTF32 products (three TF32
+            # products each) at 495 TFLOP/s, or the bytes
+            b_ms, b_by = SSD_T.k5_bound_ms(G, Q, 1, 1, P, N_)
             rows.append({"G": G, "Q": Q, "P": P, "N": N_, "ms": kern,
                          "plain_ms": plain, "library_ms": None,
                          "library": "none (no PyTorch call computes the "
@@ -1706,9 +1753,34 @@ def main(argv=None) -> int:
                   f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, two bmm "
                   f"(context) {ctx*1e3:.1f} us, bound {b_ms*1e3:.1f} us "
                   f"({b_by})")
+        # the path's call (the grouped entry on the stored layout, B and C
+        # per group) at Q = 256 and 32: the kernels line's row is Q = 256
+        for Q in (256, 32):
+            sh = SSD_T.PATH
+            args_ = SSD_T.path_inputs(Q, 100 + Q, dev)
+            kern = time_ms(lambda: SSD.ssd_intra_chunked(*args_), 50, flush)
+            plain = time_ms(lambda: SSD.ssd_intra_chunked_ref(*args_), 20,
+                            flush)
+            b_ms, b_by = SSD_T.k5_bound_ms(sh["B"] * sh["nc"], Q, sh["H"],
+                                           sh["G"], sh["P"], sh["N"])
+            plan = SSD.ssd_plan(sh["B"], sh["nc"], Q, sh["H"], sh["G"])
+            rows.append({"layout": "grouped", "Q": Q, **sh, "ms": kern,
+                         "plain_ms": plain, "library_ms": None,
+                         "library": "none (no PyTorch call computes the "
+                                    "masked two-GEMM chain)",
+                         "head_block": plan.head_block, "grid": plan.grid,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "bound_counts": "x, y, dt, cums, B and C (per "
+                                         "group) once; 3xTF32 products of "
+                                         "the causal pairs at 495 TFLOP/s"})
+            print(f"K5 grouped B={sh['B']} Q={Q} H={sh['H']} G={sh['G']} "
+                  f"P={sh['P']} N={sh['N']} (head block {plan.head_block}, "
+                  f"grid {plan.grid}): kernel {kern*1e3:.1f} us, plain "
+                  f"{plain*1e3:.1f} us, bound {b_ms*1e3:.1f} us ({b_by})")
         timing["ssd_intra_shapes"] = rows
-        timing["ssd_intra"] = dict(rows[1], shape="mamba2 chunk step (G = "
-                                   "8 x 80, Q = 256, P = 64, N = 128) fp32")
+        timing["ssd_intra"] = dict(rows[2], shape="mamba2 chunk step's call "
+                                   "(B 8, nc 1, Q 256, H 80, G 1, P 64, N "
+                                   "128) fp32, grouped entry")
 
         # K6 at the down projection at chunk rows, bf16: WS at the path's
         # tile (bk = 64, 76 planes) and at bk = 128 (38 planes; bk = 32
@@ -1787,10 +1859,14 @@ def main(argv=None) -> int:
             k1 = [e for e in ev if "paged_decode" in e.key]
             k3 = [e for e in ev if "quant_hopper" in e.key
                   or "quant_matmul_core" in e.key]
+            k5_ms, k5_kernels = kernel_ms(prof, "ssd_intra")
             return {"step_ms": wall, "device_ms": dev_ms,
                     "device_busy_share": dev_ms / wall,
                     "device_kernels": sum(e.count for e in ev),
                     "k5_launches": SSD.launches.count,
+                    "k5_ms": k5_ms, "k5_kernels": k5_kernels,
+                    # the aten ops behind the device time (CPU-side names)
+                    "top_ops": top_ops(prof, 10),
                     # K1 / K1-int8: the split and the combine kernel
                     "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
                     "k1_kernels": {e.key[:60]: e.count for e in k1},
@@ -1862,6 +1938,10 @@ def main(argv=None) -> int:
             for kind, r in (("chunk", chunk), ("decode", decode)):
                 out[f"mamba2 {b} {kind}"] = r
                 show(f"mamba2 {kind} step, {b}", r)
+            print(f"mamba2 chunk step, {b}: K5 {chunk['k5_ms']:.2f} ms "
+                  f"(x{chunk['k5_kernels']}); top aten ops by device time: "
+                  + "; ".join(f"{k} {t:.2f} ms x{c}"
+                              for k, t, c in chunk["top_ops"]))
             if chunk["k5_launches"] != m2.n_layers \
                     or decode["k5_launches"] != 0:
                 raise AssertionError(f"mamba2 {b}: K5 launched "

@@ -1,9 +1,9 @@
 """What the port's timing scripts share: the card's line, device and host
 time of a call, and the least time a function could take on an H100.
 
-``chip_smoke.py``, ``launch/gemm_tiles.py`` and ``launch/quant_tiles.py``
-time with these, so their numbers are taken one way.  Needs the card
-(``torch.cuda``) only when a timer is called.
+``chip_smoke.py``, ``launch/gemm_tiles.py``, ``launch/quant_tiles.py``
+and ``launch/ssd_tiles.py`` time with these, so their numbers are taken
+one way.  Needs the card (``torch.cuda``) only when a timer is called.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import torch
 
 #: H100 SXM data-sheet peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+              "tfloat32": 495e12}
 
 
 def card_line() -> str:
@@ -80,3 +81,24 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_ms(prof, name: str | None = None) -> tuple[float, int]:
+    """Device time (ms) and launches of the kernels in a
+    ``torch.profiler`` profile, or of those whose name holds ``name``."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and (name is None or name in e.key)]
+    return (sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev))
+
+
+def top_ops(prof, n: int) -> list[tuple[str, float, int]]:
+    """The ``n`` host-side ops (aten names) whose own kernels took the most
+    device time in a ``torch.profiler`` profile: (name, ms, calls)."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in ev[:n]]

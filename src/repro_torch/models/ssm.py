@@ -3,9 +3,10 @@
 
 The chunked algorithm computes the intra-chunk contributions as
 (C B^T ⊙ L) X batched matmuls -- the SSD intra-chunk kernel K5
-(``kernels.ssd.ssd_intra``) -- and carries the inter-chunk state with a
-scan over chunks; the chunk states, the scan and the inter-chunk term are
-plain torch, as they are plain ``jnp`` in the reference.
+(``kernels.ssd.ssd_intra_chunked``, B and C per group, every operand in
+its stored layout) -- and carries the inter-chunk state with a scan over
+chunks; the chunk states, the scan and the inter-chunk term are plain
+torch einsums per group, as they are plain ``jnp`` in the reference.
 
 Layout follows Mamba2: d_inner = expand * d_model, heads = d_inner /
 head_dim, B/C shared per group (n_groups), scalar A per head, conv1d width
@@ -84,13 +85,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                                          ctx.shape[2]))
 
 
-def _heads_first(t: torch.Tensor) -> torch.Tensor:
-    """(B, nc, Q, H, ...) -> (B*nc*H, Q, ...), contiguous: K5's layout."""
-    B, nc, Q, H = t.shape[:4]
-    perm = (0, 1, 3, 2) + tuple(range(4, t.dim()))
-    return t.permute(perm).reshape(B * nc * H, Q, *t.shape[4:]).contiguous()
-
-
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
                 h0: torch.Tensor | None = None
@@ -117,26 +111,25 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     nc = S // chunk
     rep = H // G
 
-    # broadcast groups to heads
-    Bc = Bm.repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, H, N)
-    Cc = Cm.repeat_interleave(rep, dim=2).reshape(Bb, nc, chunk, H, N)
+    # views in the stored layout; B and C stay per group (head h reads
+    # group h // rep), so nothing is broadcast to heads
     xc = x.reshape(Bb, nc, chunk, H, P)
     dtc = dt.reshape(Bb, nc, chunk, H)
+    Bc = Bm.reshape(Bb, nc, chunk, G, N)
+    Cc = Cm.reshape(Bb, nc, chunk, G, N)
 
     dA = dtc * A[None, None, None, :]             # (B, nc, Q, H) negative
     cums = torch.cumsum(dA, dim=2)                # within-chunk cumulative
 
-    # intra-chunk: K5 over (B*nc*H, Q, .)
-    y_intra = K.ssd_intra(_heads_first(xc), _heads_first(dtc),
-                          _heads_first(cums), _heads_first(Bc),
-                          _heads_first(Cc))
-    y_intra = y_intra.reshape(Bb, nc, H, chunk, P).permute(0, 1, 3, 2, 4)
+    # intra-chunk: K5, per group, in the (B, nc, Q, H, .) layout
+    y_intra = K.ssd_intra_chunked(xc, dtc, cums, Bc, Cc)
 
     # chunk-final states: sum_t exp(cums[Q-1] - cums[t]) dt_t B_t x_t
     decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)      # (B,nc,Q,H)
     w = dtc * decay_to_end
-    chunk_states = torch.einsum("bcthp,bcthn->bchpn", xc * w[..., None],
-                                Bc)
+    xw = (xc * w[..., None]).reshape(Bb, nc, chunk, G, rep, P)
+    chunk_states = torch.einsum("bctgrp,bctgn->bcgrpn", xw, Bc).reshape(
+        Bb, nc, H, P, N)
 
     # inter-chunk recurrence over the chunk index
     chunk_decay = torch.exp(cums[:, :, -1, :])                # (B,nc,H)
@@ -148,11 +141,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = h * chunk_decay[:, ci, :, None, None] + chunk_states[:, ci]
     h_prevs = torch.stack(h_prevs, dim=1)                     # (B,nc,H,P,N)
 
-    # inter-chunk output: y_t += C_t . (decay_from_start[t] * h_prev)
-    y_inter = torch.einsum("bcshn,bchpn->bcshp", Cc, h_prevs)
-    y_inter = y_inter * torch.exp(cums)[..., None]
+    # inter-chunk output: y_t += decay_from_start[t] * C_t . h_prev, added
+    # into y_intra in place (one pass, no copy of the permuted product)
+    y_inter = torch.einsum("bcsgn,bcgrpn->bcsgrp", Cc, h_prevs.reshape(
+        Bb, nc, G, rep, P, N))
+    y_intra.view(Bb, nc, chunk, G, rep, P).addcmul_(
+        y_inter, torch.exp(cums).view(Bb, nc, chunk, G, rep, 1))
 
-    y = (y_intra + y_inter).reshape(Bb, S, H, P)
+    y = y_intra.reshape(Bb, S, H, P)
     return y[:, :S_in], h
 
 

@@ -11,10 +11,11 @@ and the plain version sum in different orders), bf16 outputs to 2e-2
 K3 (quant_matmul) writes fp32 for either input type and is held to
 |err| / (1 + |ref|) <= 1e-4.  K6 (the spill planes) is held to 1e-4
 plane by plane and to bit equality across two runs.  K4 (limb_gemm) and ``limb_matmul`` are
-integer and held bit-exact (``torch.equal``).  K5 (ssd_intra) is held to
-2e-4, the reference kernel test's tolerance, and ``ssd_chunked`` with K5
-inside to a sequential fp64 recurrence within 2e-3, the reference model
-test's tolerance (``tests/test_models.py``).
+integer and held bit-exact (``torch.equal``).  K5 (ssd_intra and its
+grouped entry) is held to 2e-4, the reference kernel test's tolerance,
+and to bit equality across two launches; ``ssd_chunked`` with K5 inside
+to a sequential fp64 recurrence within 2e-3, the reference model test's
+tolerance (``tests/test_models.py``).
 """
 
 import dataclasses
@@ -438,6 +439,79 @@ def test_ssd_intra_kernel_matches_plain(cuda, Q):
     assert TSSD.launches.count == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _grouped_ssd_inputs(dev, B, nc, Q, H, G, P, N, seed, fall=None, pad=0,
+                        strided=False):
+    """K5's grouped operands: dt = softplus(N(0, 1)) (cums fall by about
+    200 over 256 rows), ``fall`` a linear fall of cums over the chunk,
+    ``pad`` dt = 0 on the last rows, ``strided`` x, B and C as slices of
+    one wider tensor (the conv output's layout)."""
+    gen = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, nc, Q, H, generator=gen))
+    if pad:
+        dt[:, :, Q - pad:] = 0.0
+    cums = torch.cumsum(-dt, dim=2)
+    if fall is not None:
+        cums = torch.linspace(0.0, -fall, Q)[None, None, :, None].expand(
+            B, nc, Q, H).contiguous()
+    wide = torch.randn(B, nc, Q, H * P + 2 * G * N + 4, generator=gen)
+    if strided:
+        x = wide[..., :H * P].view(B, nc, Q, H, P)
+        b = wide[..., H * P:H * P + G * N].view(B, nc, Q, G, N)
+        c = wide[..., H * P + G * N:H * P + 2 * G * N].view(B, nc, Q, G, N)
+    else:
+        x = wide[..., :H * P].reshape(B, nc, Q, H, P).contiguous()
+        b = torch.randn(B, nc, Q, G, N, generator=gen)
+        c = torch.randn(B, nc, Q, G, N, generator=gen)
+    return [t.to(dev) for t in (x, dt, cums, b, c)]
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((8, 1, 256, 80, 1, 64, 128), {}),
+    ((8, 1, 32, 80, 1, 64, 128), {}),
+    ((8, 2, 256, 26, 2, 64, 128), {}),
+    ((2, 1, 100, 8, 2, 24, 40), {}),
+    ((2, 1, 100, 8, 2, 18, 10), {}),
+    ((2, 2, 256, 16, 1, 64, 128), {"strided": True}),
+    ((2, 1, 256, 16, 1, 64, 128), {"fall": 300.0}),
+    ((2, 1, 256, 16, 1, 64, 128), {"pad": 100}),
+], ids=["full-width", "Q32", "G2-ragged-head-block", "ragged-Q",
+        "scalar-copies", "strided-views", "cums-fall-300", "dt0-pad-100"])
+def test_ssd_intra_chunked_kernel_matches_plain(cuda, shape, kw):
+    """K5's grouped entry against its plain version (2e-4), finite where
+    every masked exponent overflows, and two launches bit-equal."""
+    B, nc, Q, H, G, P, N = shape
+    args = _grouped_ssd_inputs(cuda, *shape, seed=sum(shape), **kw)
+    plan = TSSD.ssd_plan(B, nc, Q, H, G)
+    if shape[2:5] == (256, 26, 2):
+        assert (H // G) % plan.head_block != 0
+    before = TSSD.launches.count
+    got = TSSD.ssd_intra_chunked(*args)
+    again = TSSD.ssd_intra_chunked(*args)
+    want = TSSD.ssd_intra_chunked_ref(*args)
+    torch.cuda.synchronize()
+    assert TSSD.launches.count == before + 2
+    assert got.shape == (B, nc, Q, H, P)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, again)
+
+
+def test_ssd_intra_reads_no_device_value(cuda):
+    """The wrapper sizes its grid from shapes alone: no host sync."""
+    calls = [_grouped_ssd_inputs(cuda, 8, 1, 256, 80, 1, 64, 128, seed=5),
+             _grouped_ssd_inputs(cuda, 2, 1, 100, 8, 2, 18, 10, seed=6)]
+    for args in calls:                      # build and load first
+        TSSD.ssd_intra_chunked(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in calls:
+            TSSD.ssd_intra_chunked(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_ssd_chunked_matches_recurrence_on_card(cuda):
