@@ -64,12 +64,19 @@ The int8 quantized path adds, after phase 4:
 
 The exact multi-precision integer GEMM (paper §3.1) adds, after K3:
 
-  k4_vs_plain: K4 (limb_gemm) against its plain version, ``torch.equal``
-  on every diagonal plane: 2, 3 and 5 limbs a side and la != lb, M, N, K
-  on and off the tile grid (M or N = 1 and 2, K = 1, 64 and 9216), every
-  tile, limbs over the whole digit range and the digits of int32 min and
-  max (``--phases k4_vs_plain`` is the cheap first call after a kernel
-  edit); and after the int8 scaled-down phase:
+  k4_vs_plain: K4 (limb_gemm) against its plain versions, ``torch.equal``
+  and every call repeated bit-equal.  The planes entry on every diagonal
+  plane: 1, 2, 3 and 5 limbs a side and la != lb, M, N, K on and off the
+  tile grid (M or N = 1 and 2, K = 1, 7, 64, 129 and 9216), every tile of
+  each digit count, limbs over the whole digit range and the digits of
+  int32 min and max.  The fused entry (``ops.limb_matmul``) against the
+  unfused composition: int8, int16 and int32 at their extremes on the
+  timed shapes and ragged ones (rows not 16-byte aligned), mixed dtypes
+  with ``in_bits``, values wider than ``in_bits``, every tile of each
+  dtype, K split over a cluster; both entries once under
+  ``torch.cuda.set_sync_debug_mode("error")`` (``--phases k4_vs_plain``
+  is the cheap first call after a kernel edit); and after the int8
+  scaled-down phase:
 
   limb_path: ``ops.limb_matmul`` end to end on every integer p-GEMM of
   the MD (15 INT32 trailing updates), FFE (INT16 FIR) and ALI (INT8 fc6,
@@ -77,11 +84,12 @@ The exact multi-precision integer GEMM (paper §3.1) adds, after K3:
   example's shape and kernels_bench's two: (hi, lo) bit-equal to the
   numpy ``int_matmul_mod64_ref`` on the host, ``combine_diagonals`` on
   the card bit-equal to its CPU result, the explorer's schedule printed
-  beside each, and K4's launch count (zeroed just before, read just
-  after) equal to the number of calls.  Phase 7 times K4, the whole
-  ``limb_matmul``, the combine, the plain version and la*lb
-  ``torch._int_mm`` calls (context) at md.update960, ffe.fir and
-  alexnet.fc6.
+  beside each, and K4's launch count and the CUDA kernels
+  ``torch.profiler`` sees (zeroed just before, read just after) both
+  equal to the number of calls: one kernel a call.  Phase 7 times the
+  fused entry (the whole ``limb_matmul``) and its host wall a call, the
+  planes entry, the plain composition and la*lb ``torch._int_mm`` calls
+  (context) at md.update960, ffe.fir and alexnet.fc6.
 
 The Mamba2 (SSD) path adds, after K4:
 
@@ -249,10 +257,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import ref as KREF
     from repro_torch.kernels import ssd as SSD
+    from repro_torch.launch import limb_tiles as LT
     from repro_torch.launch import quant_tiles as QT
     from repro_torch.launch import ssd_tiles as SSD_T
-    from repro_torch.launch.timing import (bound_ms, card_line, kernel_ms,
-                                           time_ms, top_ops)
+    from repro_torch.launch.timing import (bound_ms, card_line, host_us,
+                                           kernel_ms, time_ms, top_ops)
     from repro_torch.models import network as N
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
@@ -565,30 +574,47 @@ def main(argv=None) -> int:
         return torch.randint(-64, 64, (l, rows, cols), generator=gen,
                              device=dev, dtype=torch.int8)
 
+    def raw_ints(dtype, shape, seed, lo=None, hi=None):
+        """Integers over a dtype's whole range (or [lo, hi]), with its
+        extremes in the first and last elements."""
+        info = torch.iinfo(dtype)
+        lo = info.min if lo is None else lo
+        hi = info.max if hi is None else hi
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randint(lo, hi + 1, shape, generator=gen, device=dev,
+                          dtype=torch.int64).to(dtype)
+        x.view(-1)[0], x.view(-1)[-1] = lo, hi
+        return x
+
     def p_k4():
-        # (la, lb, M, N, K, tile or None = the wrapper's choice)
+        # the planes entry: (la, lb, M, N, K, blocks or None = the plan's)
         cases = [(2, 2, 64, 128, 64, None), (3, 3, 65, 130, 100, None),
                  (5, 5, 960, 960, 64, None), (5, 5, 33, 70, 1, None),
                  (2, 2, 32, 4096, 9216, None), (3, 3, 1000, 2, 128, None),
                  (5, 5, 777, 1, 64, None), (5, 5, 1, 300, 96, None),
                  (3, 3, 2, 257, 33, None), (2, 5, 100, 60, 70, None),
-                 (5, 3, 61, 77, 160, None), (1, 1, 17, 19, 5, None)]
-        cases += [(l, l, 37, 45, 83, t) for t in range(len(LG.TILES))
-                  for l in (2, 3, 5)]
+                 (5, 3, 61, 77, 160, None), (1, 1, 17, 19, 5, None),
+                 (2, 2, 37, 45, 7, None), (3, 3, 20, 9, 129, None)]
+        cases += [(l, l, 37, 45, 83, t) for l in (1, 2, 3, 5)
+                  for t in LG.tiles_for(l)]
         rows = []
-        for n, (la, lb, M, N_, K_, tile) in enumerate(cases):
+        for n, (la, lb, M, N_, K_, blocks) in enumerate(cases):
             a, b = limbs(la, M, K_, 2 * n), limbs(lb, K_, N_, 2 * n + 1)
-            got = LG.limb_gemm_diagonals(a, b, tile=tile)
+            got = LG.limb_gemm_diagonals(a, b, blocks=blocks)
+            again = LG.limb_gemm_diagonals(a, b, blocks=blocks)
             want = LG.limb_gemm_diagonals_ref(a, b)
             torch.cuda.synchronize()
             err = (got.long() - want.long()).abs().max().item()
             sm.kerr["limb_gemm"] = max(sm.kerr["limb_gemm"], err)
-            t = LG.tile_for(M, N_) if tile is None else tile
-            rows.append({"la": la, "lb": lb, "M": M, "N": N_, "K": K_,
-                         "tile": list(LG.TILES[t]), "max_abs_err": err,
-                         "ok": bool(torch.equal(got, want))})
+            plan = LG.limb_plan(M, N_, K_, la, lb, limbs=True, fused=False,
+                                blocks=blocks)
+            rows.append({"entry": "planes", "la": la, "lb": lb, "M": M,
+                         "N": N_, "K": K_, "tile": list(plan.tile),
+                         "ranks": plan.ranks, "max_abs_err": err,
+                         "ok": bool(torch.equal(got, want)
+                                    and torch.equal(got, again))})
         # the digits of int32 extremes, decomposed on the card and on the
-        # host, through the kernel
+        # host, through the planes entry
         ext = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0, 1, -2 ** 30],
                            dtype=torch.int32)
         x = ext.repeat(48 * 40 // len(ext)).reshape(48, 40)
@@ -602,15 +628,102 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         err = (got.long() - want.long()).abs().max().item()
         sm.kerr["limb_gemm"] = max(sm.kerr["limb_gemm"], err)
-        rows.append({"la": 5, "lb": 5, "M": 48, "N": 48, "K": 40,
-                     "tile": list(LG.TILES[LG.tile_for(48, 48)]),
-                     "inputs": "digits of int32 min/max", "max_abs_err": err,
+        rows.append({"entry": "planes", "la": 5, "lb": 5, "M": 48, "N": 48,
+                     "K": 40, "inputs": "digits of int32 min/max",
+                     "max_abs_err": err,
                      "ok": bool(torch.equal(got, want)) and same_digits})
+        # the fused entry: (a dtype, b dtype, in_bits or None, M, N, K,
+        # blocks or None, value range or None), against its plain version
+        # (the unfused composition) on the same tensors
+        i8, i16, i32 = torch.int8, torch.int16, torch.int32
+        fcases = [(i32, i32, None, 960, 960, 64, None, None),
+                  (i16, i16, None, 48000, 2, 128, None, None),
+                  (i8, i8, None, 32, 4096, 9216, None, None),
+                  (i8, i8, None, 32, 1000, 4096, None, None),
+                  (i32, i32, None, 96, 64, 160, None, None),
+                  (i16, i16, None, 128, 128, 256, None, None),
+                  (i32, i32, None, 1, 70, 64, None, None),
+                  (i32, i32, None, 70, 1, 33, None, None),
+                  (i16, i16, None, 2, 45, 7, None, None),
+                  (i8, i8, None, 300, 2, 1, None, None),
+                  (i32, i32, None, 37, 45, 129, None, None),
+                  (i8, i8, None, 65, 131, 7, None, None),
+                  (i16, i16, None, 33, 17, 129, None, None),
+                  (i32, i16, 16, 50, 70, 90, None, (-2 ** 15, 2 ** 15 - 1)),
+                  (i8, i32, 32, 40, 33, 100, None, None),
+                  (i32, i8, 8, 70, 20, 65, None, None),
+                  (i32, i32, 8, 30, 40, 50, None, None),
+                  (i32, i32, 20, 64, 64, 300, None, None),
+                  (i8, i8, 7, 20, 30, 40, None, None)]
+        fcases += [(dt, dt, None, 37, 45, 83, t, None)
+                   for dt, nl in ((i8, 2), (i16, 3), (i32, 5))
+                   for t in LG.tiles_for(LG.digits_for(dt.itemsize * 8, nl, 83))]
+        for n, (ta, tb, in_bits, M, N_, K_, blocks, rng) in enumerate(fcases):
+            a = raw_ints(ta, (M, K_), 500 + 2 * n,
+                         *(rng if rng and ta != i8 else (None, None)))
+            b = raw_ints(tb, (K_, N_), 501 + 2 * n)
+            bits = in_bits or ta.itemsize * 8
+            nl = KREF.n_limbs_for(bits)
+            got = OPS.limb_matmul(a, b, in_bits=in_bits, blocks=blocks)
+            again = OPS.limb_matmul(a, b, in_bits=in_bits, blocks=blocks)
+            want = LG.limb_matmul_fused_ref(a, b, nl, nl)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(g, w) and torch.equal(g, r)
+                     for g, w, r in zip(got, want, again))
+            err = max((g.long() - w.long()).abs().max().item()
+                      for g, w in zip(got, want))
+            sm.kerr["limb_gemm"] = max(sm.kerr["limb_gemm"], err)
+            plan = LG.limb_plan(M, N_, K_,
+                                LG.digits_for(ta.itemsize * 8, nl, K_),
+                                LG.digits_for(tb.itemsize * 8, nl, K_),
+                                ta.itemsize, tb.itemsize, blocks=blocks)
+            rows.append({"entry": "fused", "a": str(ta), "b": str(tb),
+                         "in_bits": in_bits, "M": M, "N": N_, "K": K_,
+                         "tile": list(plan.tile), "config": plan.config,
+                         "ranks": plan.ranks, "stages": plan.stages,
+                         "max_abs_err": err, "ok": bool(ok)})
+        # int8 at K = 2^17, every value -128: each output 2^31, one CTA
+        # summing the whole K (a single int8 digit would wrap its plane)
+        K_ = LG.MAX_K
+        a = torch.full((1024, K_), -128, dtype=i8, device=dev)
+        b = torch.full((K_, 1024), -128, dtype=i8, device=dev)
+        got = OPS.limb_matmul(a, b)
+        want = LG.limb_matmul_fused_ref(a, b, 2, 2)
+        torch.cuda.synchronize()
+        err = max((g.long() - w.long()).abs().max().item()
+                  for g, w in zip(got, want))
+        sm.kerr["limb_gemm"] = max(sm.kerr["limb_gemm"], err)
+        plan = LG.limb_plan(1024, 1024, K_, LG.digits_for(8, 2, K_),
+                            LG.digits_for(8, 2, K_))
+        rows.append({"entry": "fused", "a": "torch.int8", "b": "torch.int8",
+                     "M": 1024, "N": 1024, "K": K_,
+                     "inputs": "every value -128", "tile": list(plan.tile),
+                     "config": plan.config, "ranks": plan.ranks,
+                     "max_abs_err": err,
+                     "ok": bool(all(torch.equal(g, w)
+                                    for g, w in zip(got, want))
+                                and got[0].eq(0).all().item()
+                                and got[1].eq(-2 ** 31).all().item())})
+        del a, b, got, want
+        # no device value is read by the wrapper
+        a = raw_ints(i32, (96, 160), 7)
+        b = raw_ints(i32, (160, 64), 8)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            OPS.limb_matmul(a, b)
+            LG.limb_gemm_diagonals(LG.limb_decompose(a, 5),
+                                   LG.limb_decompose(b, 5))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         rep["k4_check"] = rows
         bad = [r for r in rows if not r["ok"]]
+        nf = sum(r["entry"] == "fused" for r in rows)
         print(f"K4: {len(rows) - len(bad)}/{len(rows)} cases torch.equal to "
-              f"the plain version (tolerance 0: integers); limb_decompose "
-              f"on the card equals the host and numpy: {same_digits}")
+              f"the plain version and repeats bit-equal (tolerance 0: "
+              f"integers; {len(rows) - nf} planes-entry cases, {nf} fused); "
+              f"limb_decompose on the card equals the host and numpy: "
+              f"{same_digits}; no device read (sync debug mode 'error')")
         if bad:
             raise AssertionError(f"K4 mismatches: {bad[:3]}")
 
@@ -1363,10 +1476,14 @@ def main(argv=None) -> int:
                   for a, b in inputs]
         torch.cuda.synchronize()
         LG.launches.reset()
-        outs = [OPS.limb_matmul(a, b) for a, b in dev_in]
-        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            outs = [OPS.limb_matmul(a, b) for a, b in dev_in]
+            torch.cuda.synchronize()
         launches = LG.launches.count
         limb_launches["limb_gemm"] = launches
+        _, cuda_kernels = kernel_ms(prof)
         rows, cfg = [], GTAConfig(lanes=4)
         for op, (a, b), (ta, tb), (hi, lo) in zip(ops, inputs, dev_in, outs):
             rhi, rlo = KREF.int_matmul_mod64_ref(a, b)
@@ -1381,9 +1498,13 @@ def main(argv=None) -> int:
                 torch.equal(clo.cpu(), hlo)
             choice = explore(op, cfg)
             sch = choice.best.schedule
+            d = LG.digits_for(op.precision.bits, nl, op.K)
+            plan = LG.limb_plan(op.M, op.N, op.K, d, d,
+                                op.precision.bits // 8,
+                                op.precision.bits // 8)
             rows.append({"name": op.name, "M": op.M, "N": op.N, "K": op.K,
                          "precision": op.precision.name, "limbs": nl,
-                         "tile": list(LG.TILES[LG.tile_for(op.M, op.N)]),
+                         "tile": list(plan.tile), "ranks": plan.ranks,
                          "exact": bool(exact),
                          "combine_cuda_equals_cpu": bool(combine_same),
                          "schedule": {"dataflow": sch.dataflow.value,
@@ -1399,15 +1520,17 @@ def main(argv=None) -> int:
                   f"{sch.dataflow.value} {sch.array.rows}x{sch.array.cols} "
                   f"k_fold={sch.k_fold} {choice.cycles:.0f} cycles")
         rep["limb_path"] = {"calls": len(ops), "k4_launches": launches,
-                            "rows": rows}
+                            "cuda_kernels": cuda_kernels, "rows": rows}
         bad = [r["name"] for r in rows
                if not (r["exact"] and r["combine_cuda_equals_cpu"])]
         print(f"limb_path: {len(rows) - len(bad)}/{len(rows)} p-GEMMs exact; "
-              f"K4 launches {launches} for {len(ops)} limb_matmul calls")
+              f"K4 launches {launches} and CUDA kernels {cuda_kernels} "
+              f"(torch.profiler) for {len(ops)} limb_matmul calls")
         if bad:
             raise AssertionError(f"limb_matmul not exact: {bad}")
-        if launches != len(ops):
-            raise AssertionError(f"K4 launched {launches} times for "
+        if launches != len(ops) or cuda_kernels != len(ops):
+            raise AssertionError(f"K4 launched {launches} times and the "
+                                 f"card ran {cuda_kernels} kernels for "
                                  f"{len(ops)} limb_matmul calls")
 
     # -- 6d. the spill-epilogue GEMM path at full width ---------------------
@@ -1645,79 +1768,54 @@ def main(argv=None) -> int:
         timing["quant_matmul"] = dict(rows[3], shape="decode down projection "
                                       "(8, 896, 4864) bf16 x -> fp32")
 
-        # K4 and the whole limb_matmul at three of limb_path's shapes; no
-        # PyTorch call computes an exact integer GEMM mod 2^64 (library:
-        # none); la*lb torch._int_mm calls, where its shape rules allow,
-        # are given as context
-        by_name = {op.name: op for op in limb_gemms()}
-        rows = []
-        for name in ("md.update960", "ffe.fir", "alexnet.fc6"):
-            op = by_name[name]
-            a, b = (torch.from_numpy(x).to(dev) for x in int_operands(op, 5))
-            nl = KREF.n_limbs_for(op.precision.bits)
+        # K4 at three of limb_path's shapes (launch/limb_tiles.py): the
+        # fused entry (the whole limb_matmul, one launch), its host wall, the
+        # planes entry and the plain composition; no PyTorch call computes an
+        # exact integer GEMM mod 2^64 (library: none); la*lb torch._int_mm
+        # calls on the digits, where its shape rules allow, as context
+        rows = LT.measure(dev, flush)
+        for r in rows:
+            M_, N_, K_, nl = r["M"], r["N"], r["K"], r["limbs"]
+            a, b = LT.operands(M_, N_, K_, r["bits"], LT.SEED, dev)
             al, bl = LG.limb_decompose(a, nl), LG.limb_decompose(b, nl)
-            diags = LG.limb_gemm_diagonals(al, bl)
-            kern = time_ms(lambda: LG.limb_gemm_diagonals(al, bl), 50, flush)
-            # decompose + K4 + combine is about 120 launches, the plain
-            # version and the context 25-70: a 10 ms sleep keeps the host's
-            # enqueue outside the events (device time); the wall time of
-            # back-to-back calls includes it
-            long_sleep = 20_000_000
-            whole = time_ms(lambda: OPS.limb_matmul(a, b), 20, flush,
-                            long_sleep)
-            decomp = time_ms(lambda: (LG.limb_decompose(a, nl),
-                                      LG.limb_decompose(b, nl)), 20, flush,
-                             long_sleep)
-            comb = time_ms(lambda: ACC.combine_diagonals(diags,
-                                                         KREF.LIMB_BITS),
-                           20, flush, long_sleep)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
-                OPS.limb_matmul(a, b)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 10 * 1e3
-            plain = time_ms(lambda: LG.limb_gemm_diagonals_ref(al, bl), 10,
-                            flush, long_sleep)
             ctx, ctx_name = None, "torch._int_mm x la*lb (int8 -> int32)"
             try:
-                a8, b8 = al[0].contiguous(), bl[0].contiguous()
-                torch._int_mm(a8, b8)
+                torch._int_mm(al[0].contiguous(), bl[0].contiguous())
 
                 def int_mms():
                     for i in range(nl):
                         for j in range(nl):
                             torch._int_mm(al[i], bl[j])
-                ctx = time_ms(int_mms, 20, flush, long_sleep)
+                ctx = time_ms(int_mms, 20, flush, LT.SLEEP)
             except RuntimeError as e:
                 ctx_name = f"none (torch._int_mm: {str(e)[:80]})"
-            M_, N_, K_ = op.M, op.N, op.K
-            nbytes = nl * M_ * K_ + nl * K_ * N_ + (2 * nl - 1) * M_ * N_ * 4
-            b_ms, b_by = bound_ms(nbytes, 2 * nl * nl * M_ * N_ * K_, "int8")
-            rows.append({"name": name, "M": M_, "N": N_, "K": K_,
-                         "precision": op.precision.name, "limbs": nl,
-                         "tile": list(LG.TILES[LG.tile_for(M_, N_)]),
-                         "ms": kern, "limb_matmul_ms": whole,
-                         "limb_matmul_wall_ms": wall,
-                         "decompose_ms": decomp, "combine_ms": comb,
-                         "plain_ms": plain,
-                         "library_ms": None,
-                         "library": "none (no PyTorch call computes an exact "
-                                    "integer GEMM mod 2^64 on CUDA)",
-                         "context_ms": ctx, "context": ctx_name,
-                         "bound_ms": b_ms, "bound_by": b_by})
-            print(f"K4 {name} ({M_}, {N_}, {K_}) {op.precision.name}, "
-                  f"{nl} limbs, tile {rows[-1]['tile'][:2]}: kernel "
-                  f"{kern*1e3:.1f} us, limb_matmul {whole*1e3:.1f} us on "
-                  f"the device (decompose {decomp*1e3:.1f} us, combine "
-                  f"{comb*1e3:.1f} us), {wall*1e3:.1f} us wall a call, "
-                  f"plain {plain*1e3:.1f} us, "
-                  f"{ctx_name} "
-                  f"{'-' if ctx is None else f'{ctx*1e3:.1f} us'}, bound "
-                  f"{b_ms*1e3:.2f} us ({b_by})")
+            eb = r["bits"] // 8
+            ops_ = 2 * nl * nl * M_ * N_ * K_       # the reference's digits
+            b_ms, b_by = bound_ms(eb * (M_ * K_ + K_ * N_) + 8 * M_ * N_,
+                                  ops_, "int8")
+            p_ms, p_by = bound_ms(nl * (M_ * K_ + K_ * N_)
+                                  + (2 * nl - 1) * M_ * N_ * 4, ops_, "int8")
+            d = LG.digits_for(r["bits"], nl, K_)
+            plan = LG.limb_plan(M_, N_, K_, d, d, eb, eb)
+            pplan = LG.limb_plan(M_, N_, K_, nl, nl, limbs=True, fused=False)
+            r.update({"digits": d, "tile": list(plan.tile),
+                      "ranks": plan.ranks, "ctas": plan.ctas,
+                      "ms": r["limb_matmul_ms"],
+                      "planes_tile": list(pplan.tile),
+                      "planes_bound_ms": p_ms, "planes_bound_by": p_by,
+                      "library_ms": None,
+                      "library": "none (no PyTorch call computes an exact "
+                                 "integer GEMM mod 2^64 on CUDA)",
+                      "context_ms": ctx, "context": ctx_name,
+                      "bound_ms": b_ms, "bound_by": b_by})
+            print(f"[{card}] K4 {LT.describe(r)}; fused: {d} digits, tile "
+                  f"{plan.tile[:2]} x {plan.ranks} ranks, bound "
+                  f"{b_ms*1e3:.2f} us ({b_by}); planes entry bound "
+                  f"{p_ms*1e3:.2f} us ({p_by}); {ctx_name} "
+                  f"{'-' if ctx is None else f'{ctx*1e3:.1f} us'}")
         timing["limb_gemm_shapes"] = rows
         timing["limb_gemm"] = dict(rows[0], shape="md.update960 (960, 960, "
-                                   "64) INT32, 5 limbs a side")
+                                   "64) INT32, 5 limbs a side, fused entry")
 
         # K5 at the mamba2 chunk shapes: 8 slots x 80 heads, Q = 32 (the
         # engine's default chunk) and 256 (the published one); no PyTorch

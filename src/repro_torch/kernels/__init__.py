@@ -6,7 +6,8 @@ epilogue), ``quant_matmul`` (K3, the int8-weight GEMM), ``limb_gemm``
 (K4, the limb GEMM of the exact integer product) and ``ssd`` (K5, the
 Mamba2 SSD intra-chunk term) each hold a plain PyTorch version beside the
 wrapper of the CUDA source in ``csrc/``; ``accumulator`` recombines K4's
-diagonals; ``ops`` is the GEMM layer over them.  Kernels are built at
+diagonals in the plain composition (on the card K4's fused entry folds
+them itself); ``ops`` is the GEMM layer over them.  Kernels are built at
 first use (``_build``).
 
 K2's fused epilogue reduces partial sums in the kernel, so no

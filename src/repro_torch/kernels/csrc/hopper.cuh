@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the port's wgmma kernels (sm_90a):
-// mbarriers, TMA 2-D boxes, cluster ranks and distributed shared memory,
-// wgmma descriptors and instructions (m64nNk16, bf16 in, fp32 out), and
-// the tensor-map encoder, looked up at run time (no link against libcuda).
+// mbarriers, TMA 2-D and 3-D boxes, cluster ranks and distributed shared
+// memory, wgmma descriptors and instructions (m64nNk16, bf16 in, fp32
+// out; m64nNk32, s8 in, s32 out), and the tensor-map encoder, looked up at
+// run time (no link against libcuda).
 //
-// Used by mpgemm.cu (K2 / K6) and quant_matmul.cu (K3).  Everything is in
-// an anonymous namespace, so each source gets its own copy.
+// Used by mpgemm.cu (K2 / K6), quant_matmul.cu (K3) and limb_gemm.cu
+// (K4).  Everything is in an anonymous namespace, so each source gets its
+// own copy.
 //
 // Shared-memory layout the helpers assume: a stage holds whole 128-byte
 // rows, 128-byte swizzled (chunk c of row r at c ^ (r % 8)), 1024-byte
@@ -99,6 +101,19 @@ __device__ __forceinline__ float4 ld_dsmem_v4(const void* p, uint32_t rank) {
   return v;
 }
 
+// Read 16 bytes at the same shared-memory offset as `p` in cluster CTA
+// `rank`.
+__device__ __forceinline__ uint4 ld_dsmem_u4(const void* p, uint32_t rank) {
+  uint32_t ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(ra) : "r"(smem_u32(p)), "r"(rank));
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(ra)
+               : "memory");
+  return v;
+}
+
 // One 2-D TMA box into shared memory, completing on `bar`; with a
 // non-zero mask the box is multicast to those CTAs of the cluster (same
 // shared-memory offset and barrier in each).
@@ -120,6 +135,49 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
         ::"r"(dst), "l"(m), "r"(smem_u32(bar)), "h"(mask), "r"(c0),
         "r"(c1) : "memory");
   }
+}
+
+// One 3-D TMA box into shared memory (coordinates c0 innermost),
+// completing on `bar`.
+__device__ __forceinline__ void tma_box3(uint32_t dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// One 3-D TMA store of a shared-memory box (128-byte aligned) to global,
+// in the thread's current bulk group; the hardware clips at the edges.
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+        "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups still read shared
+// memory (kRead) or are still in flight at all.
+template <int N, bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make mbarrier initialisations visible before the barriers are used.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // Load the ROWS x kBoxK operand tile at (r0, k) into one stage.  K-major
@@ -330,6 +388,62 @@ template <> struct Wgmma<256> {
   }
 };
 
+// wgmma.mma_async m64nNk32, s32 += s8 x s8, both operands K-major in
+// shared memory (8-bit types take no transpose: a K-major tile is the only
+// layout); the accumulator layout is the fp32 one (N / 2 registers).
+template <int N> struct WgmmaS8;
+
+template <> struct WgmmaS8<8> {
+  static __device__ __forceinline__ void mma(int (&d)[4], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <> struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <> struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// Keep the compiler from moving integer accumulator reads or writes
+// across the asynchronous wgmma boundary.
+template <int NR>
+__device__ __forceinline__ void fence_acc(int (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -373,6 +487,27 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t estride[2] = {1, 1};
   const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
                         box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+// A 3-D tensor map: dims[0] (innermost) x dims[1] x dims[2] elements of
+// `type`, strides[0] / strides[1] bytes between steps of dims 1 / 2, box
+// {box[0], box[1], box[2]}, zero fill past the edges.  Returns 0,
+// kNoEncoder, or kEncodeFailed + the CUresult.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* ptr, const uint64_t (&dims)[3],
+                     const uint64_t (&strides)[2], const uint32_t (&box)[3],
+                     CUtensorMapSwizzle swizzle) {
+  EncodeFn fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t st[2] = {strides[0], strides[1]};
+  const cuuint32_t bx[3] = {box[0], box[1], box[2]};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), d, st, bx,
+                        estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);

@@ -4,7 +4,8 @@ schedule-driven ``matmul``, ``quant_matmul`` and ``GemmBackend``.
 ``limb_matmul`` is the paper's §3.1 technique end to end: both operands
 cut into balanced int8 limbs, the limb GEMM (K4) summing the limb
 products per anti-diagonal, and the multi-precision accumulator
-recombining them into (hi, lo) int32 pairs modulo 2^64.
+recombining them into (hi, lo) int32 pairs modulo 2^64 -- one launch of
+K4's fused entry on the card.
 
 ``matmul`` consults a :class:`~repro_torch.core.scheduler.ScheduleCache`
 (the paper-§5 exploration, memoized per (M, N, K, precision)), applies the
@@ -32,7 +33,6 @@ from repro_torch.core.precision import precision_for_dtype
 from repro_torch.core.scheduler import ScheduleCache
 from repro_torch.core.tiling import FOLD_GRAIN, HOPPER_BK, BlockConfig, \
     choose_block_config, hopper_tile
-from repro_torch.kernels import accumulator
 from repro_torch.kernels import limb_gemm as _lg
 from repro_torch.kernels import mpgemm as _mp
 from repro_torch.kernels import quant_matmul as _qm
@@ -49,26 +49,20 @@ def limb_matmul(a: torch.Tensor, b: torch.Tensor, *,
 
     a (M, K), b (K, N): int8/int16/int32, or int32 holding narrower
     values with ``in_bits`` naming the decomposition width (mixed dtypes
-    need it).  Runs where its operands lie: K4 on CUDA tensors, its plain
-    version on CPU tensors.  The reference picks blocks with its TPU
-    chooser; here the tile is one of K4's compiled tiles
-    (``limb_gemm.TILES``), chosen by ``limb_gemm.tile_for`` unless
-    ``blocks`` names one of them as (bm, bn, bk) -- any other ``blocks``
-    raises."""
+    need it).  Runs where its operands lie: on CUDA tensors one launch of
+    K4's fused entry (``limb_gemm.limb_matmul_fused``: digits cut in
+    shared memory, the planes folded in registers), on CPU tensors the
+    plain composition -- decompose, the limb GEMM's plain version,
+    ``combine_diagonals``.  The reference picks blocks with its TPU
+    chooser; here ``limb_gemm.limb_plan`` picks the tile unless ``blocks``
+    names one of ``limb_gemm.TILES`` as (bm, bn, bk) for the operands'
+    digit count -- any other ``blocks`` raises."""
     if a.dtype != b.dtype and in_bits is None:
         raise ValueError("mixed input dtypes need explicit in_bits")
-    tile = None
-    if blocks is not None:
-        if tuple(blocks) not in _lg.TILES:
-            raise ValueError(f"blocks {blocks} is not a limb GEMM tile; "
-                             f"tiles are {_lg.TILES}")
-        tile = _lg.TILES.index(tuple(blocks))
     bits = in_bits or a.element_size() * 8
     nl = n_limbs_for(bits, LIMB_BITS)
-    a_l = _lg.limb_decompose(a, nl, LIMB_BITS)
-    b_l = _lg.limb_decompose(b, nl, LIMB_BITS)
-    diags = _lg.limb_gemm_diagonals(a_l, b_l, tile=tile)
-    return accumulator.combine_diagonals(diags, LIMB_BITS)
+    return _lg.limb_matmul_fused(a.contiguous(), b.contiguous(), nl, nl,
+                                 blocks=blocks)
 
 
 def limb_matmul_i32(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:

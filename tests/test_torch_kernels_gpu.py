@@ -10,8 +10,9 @@ and the plain version sum in different orders), bf16 outputs to 2e-2
 (one bf16 rounding of values of order 1, 2^-7, plus order effects).
 K3 (quant_matmul) writes fp32 for either input type and is held to
 |err| / (1 + |ref|) <= 1e-4.  K6 (the spill planes) is held to 1e-4
-plane by plane and to bit equality across two runs.  K4 (limb_gemm) and ``limb_matmul`` are
-integer and held bit-exact (``torch.equal``).  K5 (ssd_intra and its
+plane by plane and to bit equality across two runs.  K4 (limb_gemm,
+both entries) and ``limb_matmul`` are integer and held bit-exact
+(``torch.equal``).  K5 (ssd_intra and its
 grouped entry) is held to 2e-4, the reference kernel test's tolerance,
 and to bit equality across two launches; ``ssd_chunked`` with K5 inside
 to a sequential fp64 recurrence within 2e-3, the reference model test's
@@ -372,24 +373,161 @@ def test_quant_engine_backends_agree_on_card(cuda):
 
 @pytest.mark.parametrize("la,lb", [(2, 2), (3, 3), (5, 5), (2, 5)])
 def test_limb_gemm_kernel_matches_plain(cuda, la, lb):
-    """K4 bit-exact against its plain version on ragged shapes, every
-    tile, limbs over the whole balanced digit range."""
+    """K4's planes entry bit-exact against its plain version on ragged
+    shapes (M or N of 1 and 2, K of 1, 7 and 129, rows not 16-byte
+    aligned), every tile of the digit count, limbs over the whole int8
+    range; each launch repeated bit-equal."""
     gen = torch.Generator().manual_seed(la * 10 + lb)
     before = TLG.launches.count
     shapes = [(65, 130, 100), (33, 257, 129), (1, 70, 64), (70, 1, 33),
-              (2, 45, 7), (300, 2, 1)]
+              (2, 45, 7), (300, 2, 1), (37, 45, 83)]
+    tiles = (None,) + TLG.tiles_for(max(la, lb))
     launched = 0
-    for (M, N, K), tile in itertools.product(shapes, [None, 0, 2, 3, 4]):
-        a = torch.randint(-64, 64, (la, M, K), generator=gen,
+    for (M, N, K), blocks in itertools.product(shapes, tiles):
+        a = torch.randint(-128, 128, (la, M, K), generator=gen,
                           dtype=torch.int8)
-        b = torch.randint(-64, 64, (lb, K, N), generator=gen,
+        b = torch.randint(-128, 128, (lb, K, N), generator=gen,
                           dtype=torch.int8)
-        got = TLG.limb_gemm_diagonals(a.to(cuda), b.to(cuda), tile=tile)
+        got = TLG.limb_gemm_diagonals(a.to(cuda), b.to(cuda), blocks=blocks)
+        again = TLG.limb_gemm_diagonals(a.to(cuda), b.to(cuda),
+                                        blocks=blocks)
         want = TLG.limb_gemm_diagonals_ref(a, b)
         torch.cuda.synchronize()
-        launched += 1
-        assert torch.equal(got.cpu(), want), (M, N, K, tile)
+        launched += 2
+        assert torch.equal(got.cpu(), want), (M, N, K, blocks)
+        assert torch.equal(got, again), (M, N, K, blocks)
     assert TLG.launches.count - before == launched
+
+
+def test_limb_matmul_int8_at_max_k(cuda):
+    """int8 at K = 2^17, every value -128: each output is 2^17 * 2^14 =
+    2^31, one CTA summing the whole K (1024 x 1024 fills the card without
+    a split).  A single int8 digit would wrap its int32 plane there; the
+    plan takes two digits and the result equals the plain version and the
+    closed form."""
+    K = TLG.MAX_K
+    a = torch.full((1024, K), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((K, 1024), -128, dtype=torch.int8, device=cuda)
+    assert TLG.limb_plan(1024, 1024, K, 2, 2).ranks == 1
+    hi, lo = TOPS.limb_matmul(a, b)
+    whi, wlo = TLG.limb_matmul_fused_ref(a, b, 2, 2)
+    assert torch.equal(hi, whi) and torch.equal(lo, wlo)
+    assert hi.eq(0).all() and lo.eq(-2 ** 31).all()
+
+
+def _raw(gen, dtype, shape, lo=None, hi=None):
+    info = torch.iinfo(dtype)
+    lo = info.min if lo is None else lo
+    hi = info.max if hi is None else hi
+    x = torch.randint(lo, hi + 1, shape, generator=gen,
+                      dtype=torch.int64).to(dtype)
+    x.view(-1)[0], x.view(-1)[-1] = lo, hi
+    return x
+
+
+@pytest.mark.parametrize("dtype,nl", [(torch.int8, 2), (torch.int16, 3),
+                                      (torch.int32, 5)])
+def test_limb_matmul_fused_matches_plain(cuda, dtype, nl):
+    """K4's fused entry bit-exact against its plain version (the unfused
+    composition) at the dtype's extremes, on ragged shapes and every tile
+    of its digit count, each launch repeated bit-equal; one launch a
+    call."""
+    gen = torch.Generator().manual_seed(nl)
+    shapes = [(47, 33, 96), (1, 70, 64), (70, 1, 33), (2, 45, 7),
+              (300, 2, 1), (33, 17, 129), (32, 300, 2000)]
+    tiles = (None,) + TLG.tiles_for(TLG.digits_for(dtype.itemsize * 8, nl, 1))
+    before = TLG.launches.count
+    launched = 0
+    for (M, N, K), blocks in itertools.product(shapes, tiles):
+        a, b = _raw(gen, dtype, (M, K)), _raw(gen, dtype, (K, N))
+        got = TOPS.limb_matmul(a.to(cuda), b.to(cuda), blocks=blocks)
+        again = TOPS.limb_matmul(a.to(cuda), b.to(cuda), blocks=blocks)
+        want = TLG.limb_matmul_fused_ref(a, b, nl, nl)
+        torch.cuda.synchronize()
+        launched += 2
+        for g, w, r in zip(got, want, again):
+            assert torch.equal(g.cpu(), w), (M, N, K, blocks)
+            assert torch.equal(g, r), (M, N, K, blocks)
+    assert TLG.launches.count - before == launched
+
+
+@pytest.mark.parametrize("over", [dict(ranks=1), dict(ranks=2, stages=1),
+                                  dict(ranks=3, stages=2), dict(stages=4),
+                                  dict(qs=2), dict(qs=4)], ids=str)
+def test_limb_plans_forced(cuda, monkeypatch, over):
+    """Both entries under forced K splits, ring depths and sub-tile walks,
+    on the B route by TMA (int8, N % 16 == 0) and by cp.async, bit-equal
+    to the plain versions."""
+    gen = torch.Generator().manual_seed(11)
+    plan = TLG.limb_plan
+
+    def forced(*a, **k):
+        try:
+            return plan(*a, **{**k, **over})
+        except ValueError:                 # a ring too deep for int32
+            return plan(*a, **{**k, **over, "stages": 1})
+    monkeypatch.setattr(TLG, "limb_plan", forced)
+    one_stage = "qs" in over
+    cases = [(torch.int8, 2, 32, 512, 100 if one_stage else 1000),
+             (torch.int8, 2, 20, 200, 100 if one_stage else 700),
+             (torch.int16, 3, 70, 40, 100 if one_stage else 515),
+             (torch.int32, 5, 96, 64, 64 if one_stage else 300)]
+    for dt, nl, M, N, K in cases:
+        a, b = _raw(gen, dt, (M, K)), _raw(gen, dt, (K, N))
+        hi, lo = TOPS.limb_matmul(a.to(cuda), b.to(cuda))
+        whi, wlo = TLG.limb_matmul_fused_ref(a, b, nl, nl)
+        assert torch.equal(hi.cpu(), whi) and torch.equal(lo.cpu(), wlo), \
+            (dt, M, N, K)
+        al, bl = TLG.limb_decompose(a, nl), TLG.limb_decompose(b, nl)
+        got = TLG.limb_gemm_diagonals(al.to(cuda), bl.to(cuda))
+        assert torch.equal(got.cpu(), TLG.limb_gemm_diagonals_ref(al, bl)), \
+            (dt, M, N, K)
+
+
+@pytest.mark.parametrize("ta,tb,in_bits,rng", [
+    (torch.int32, torch.int16, 16, (-2 ** 15, 2 ** 15 - 1)),
+    (torch.int8, torch.int32, 32, None), (torch.int32, torch.int8, 8, None),
+    (torch.int32, torch.int32, 8, None), (torch.int32, torch.int32, 20, None),
+    (torch.int8, torch.int8, 7, None)])
+def test_limb_matmul_fused_mixed_in_bits(cuda, ta, tb, in_bits, rng):
+    """Mixed dtypes with ``in_bits``, and values wider than ``in_bits``
+    (the remainder dropped as the composition drops it)."""
+    gen = torch.Generator().manual_seed(in_bits)
+    nl = -(-in_bits // 7)
+    a = _raw(gen, ta, (50, 70), *(rng or (None, None)))
+    b = _raw(gen, tb, (70, 33))
+    hi, lo = TOPS.limb_matmul(a.to(cuda), b.to(cuda), in_bits=in_bits)
+    whi, wlo = TLG.limb_matmul_fused_ref(a, b, nl, nl)
+    assert torch.equal(hi.cpu(), whi) and torch.equal(lo.cpu(), wlo)
+
+
+def test_limb_matmul_one_kernel_a_call(cuda):
+    """One CUDA kernel a ``limb_matmul`` call, by the launch counter and by
+    ``torch.profiler``, and no device value read by the wrapper."""
+    gen = torch.Generator().manual_seed(4)
+    pairs = [(_raw(gen, dt, (M, K)).to(cuda), _raw(gen, dt, (K, N)).to(cuda))
+             for dt, M, N, K in ((torch.int32, 96, 64, 160),
+                                 (torch.int16, 300, 2, 128),
+                                 (torch.int8, 32, 500, 3000))]
+    torch.cuda.synchronize()
+    before = TLG.launches.count
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for a, b in pairs:
+            TOPS.limb_matmul(a, b)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    assert TLG.launches.count - before == len(pairs)
+    assert kernels == len(pairs)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a, b in pairs:
+            TOPS.limb_matmul(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])

@@ -178,24 +178,32 @@ def test_limb_matmul_in_bits_and_blocks():
         TOPS.limb_matmul(torch.from_numpy(a), torch.from_numpy(b))
     with pytest.raises(ValueError, match="in_bits"):
         JOPS.limb_matmul(jnp.asarray(a), jnp.asarray(b))
+    # in_bits 16: three digits a side, so a tile of the 3-digit kernels
     hi, lo = TOPS.limb_matmul(torch.from_numpy(a), torch.from_numpy(b),
-                              in_bits=16, blocks=TLG.TILES[2])
+                              in_bits=16, blocks=(128, 32, 128))
     rhi, rlo = TREF.int_matmul_mod64_ref(a, b)
     np.testing.assert_array_equal(hi.numpy(), rhi)
     np.testing.assert_array_equal(lo.numpy(), rlo)
-    with pytest.raises(ValueError, match="not a limb GEMM tile"):
-        TOPS.limb_matmul(torch.from_numpy(a), torch.from_numpy(a.T.copy()),
-                         blocks=(128, 128, 128))
+    assert (128, 32, 128) in TLG.TILES
+    for bad in ((128, 128, 128), (64, 16, 64)):  # no tile; a 5-digit tile
+        with pytest.raises(ValueError, match="not a limb GEMM tile"):
+            TOPS.limb_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                             in_bits=16, blocks=bad)
 
 
 def test_tile_choice_fills_the_card():
-    assert TLG.TILES[TLG.tile_for(960, 960)][:2] == (32, 64)
-    assert TLG.TILES[TLG.tile_for(32, 4096)][:2] == (32, 16)
-    assert TLG.TILES[TLG.tile_for(48000, 2)][:2] == (128, 2)
-    assert TLG.TILES[TLG.tile_for(1, 300)][:2] == (2, 128)
-    for M, N in ((960, 960), (48000, 2), (32, 4096), (512, 512)):
-        bm, bn, _ = TLG.TILES[TLG.tile_for(M, N)]
-        assert -(-M // bm) * -(-N // bn) >= 132
+    def plan(M, N, K, bits):
+        d = TLG.digits_for(bits, TREF.n_limbs_for(bits), K)
+        return TLG.limb_plan(M, N, K, d, d, bits // 8, bits // 8)
+    assert plan(960, 960, 64, 32).tile == (64, 16, 64)
+    assert plan(48000, 2, 128, 16).tile == (128, 8, 128)
+    fc6 = plan(32, 4096, 9216, 8)
+    assert fc6.swap and fc6.tile == (32, 128, 128) and fc6.ranks == 7
+    assert fc6.config[0] == 1                # an int8 value is its digit
+    assert plan(1, 300, 96, 32).tile == (8, 128, 128)
+    for M, N, K, bits in ((960, 960, 64, 32), (48000, 2, 128, 16),
+                          (32, 4096, 9216, 8), (512, 512, 64, 32)):
+        assert plan(M, N, K, bits).ctas >= 132
 
 
 def test_example_prints_what_the_reference_prints(capsys):
