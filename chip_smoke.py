@@ -151,6 +151,50 @@ adds, after K5:
   reduction, the whole spill matmul, the fused one, the plain version
   and ``torch.matmul`` at the down projection (256, 896, 4864).
 
+The engine's request path (sampling, admission policies, speculative
+decoding) adds, after spill_path, each full-width run on the scheduled
+backend with the pool audit after every step:
+
+  sampled_path: the sampler on fixed logits at the head's shape (8 x
+  151936, N(0, 16)) at T 0.5-1.2, >= 20 000 draws a row, within
+  ``sampling.softmax_tv_bound`` of softmax(logits / T) in total
+  variation, greedy rows the argmax, its time beside argmax's; then four
+  of phase 5's requests (rids 4-7, 8 tokens), two at T = 0.8, for the
+  fp and the int8 model and mamba2-2.7b (prefill_chunk 256), beside a
+  greedy run of the same requests: greedy rows equal to it (and to the
+  main path's first 8 tokens), one seed twice the same tokens, another
+  seed other sampled tokens, K1, K1-int8, K2, K3 and K5 launches equal
+  to the greedy run's;
+
+  policy_path: serve_bench's overload trace (``launch/traces.py``: 12
+  requests, 4 slots, max_len 160) under fifo, best_fit, slo_preempt,
+  model_fit and model_preempt in the 20-block pool where FIFO's
+  oversized head blocks, and slo_preempt at 32 blocks, where its
+  preemption is for a slot and the resumption maps the victim's cached
+  blocks, and fifo in an unconstrained pool: fifo backs off,
+  slo_preempt preempts, resumed requests skip their cached prefill, the
+  non-preempting policies give fifo's tokens, no schedule-cache miss,
+  and every request whose bf16 tokens part from fifo's parts where its
+  two tokens lie within rounding (``divergences``: their gap in a third
+  route's logits at most twice K2's bf16 tolerance); preemptions, mean
+  pool utilisation, p95 TTFT in engine dispatches and token agreement
+  reported; the same runs on scaled-down fp32 qwen2 (weights x4): every
+  run token-identical;
+
+  spec_path: serve_bench's repetition trace (8 requests, 8 slots,
+  max_len 96) vanilla, with ``ngram`` k = 4, a self-drafting
+  ``ModelDraft`` and a divergent one (weights from another seed, x4; 8
+  tokens a request): accepted < drafted for the divergent draft,
+  self-draft acceptance, no schedule-cache miss (the verify family, head
+  (40, 151936, 896), registered at construction), bf16 divergences from
+  vanilla within rounding as above; a verify call's logits at position 0
+  against a decode step's on a copy of the same cache (``verify_gate``:
+  in fp32 within K2's fp32 tolerance, in bf16 within twice the bf16
+  decode's distance from the fp32 one); the same four runs on
+  scaled-down fp32: tokens identical to
+  vanilla; the device time of a verify step beside a decode step's.
+  Phase 7 times K2 at the verify head too.
+
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
 the CUDA-core route; the int8 main path does the same for K3
@@ -258,6 +302,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ref as KREF
     from repro_torch.kernels import ssd as SSD
     from repro_torch.launch import limb_tiles as LT
+    from repro_torch.launch import traces as TRACES
     from repro_torch.launch import quant_tiles as QT
     from repro_torch.launch import ssd_tiles as SSD_T
     from repro_torch.launch.timing import (bound_ms, card_line, host_us,
@@ -266,7 +311,10 @@ def main(argv=None) -> int:
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
+    from repro_torch.serving import sampling as SAMPLING
     from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.serving.policy import POLICY_NAMES
+    from repro_torch.serving.spec import ModelDraft
 
     dev = torch.device("cuda")
     sm = Smoke(args)
@@ -343,6 +391,13 @@ def main(argv=None) -> int:
         "hd112_G1": (4, 2, 1, 112, 16, 32, [0, 33, 64, 512], 100, None),
         # 72-byte bf16 rows (36 fp32: 144): not all 16-byte aligned
         "hd36_bytes": (3, 2, 5, 36, 16, 8, [0, 40, 128], None, None),
+        # qwen2's heads at the new paths' decode geometries: policy_path
+        # (4 slots, max_len 160: 10 blocks a table) and spec_path (8
+        # slots, max_len 96: 6 blocks)
+        "qwen2_B4_nbs10": (4, 2, 7, 64, 16, 10, [0, 17, 100, 160], None,
+                           None),
+        "qwen2_B8_nbs6": (8, 2, 7, 64, 16, 6,
+                          [0, 1, 26, 27, 50, 64, 95, 96], None, None),
     }
 
     def check_k1(quant: bool):
@@ -411,7 +466,10 @@ def main(argv=None) -> int:
         variants = [("OS", Dataflow.OS, 1), ("OS-fold2", Dataflow.OS, 2),
                     ("OS-fold4", Dataflow.OS, 4), ("WS", Dataflow.WS, 1),
                     ("IS", Dataflow.IS, 1)]
-        shapes = [(M, N, K) for M in (8, 256) for N, K in path_nk]
+        # rows: decode at 4 (policy_path) and 8 slots, the verify step's
+        # 40 (8 slots x (k + 1), spec_path), chunks of 4 x 32 and 8 x 32
+        shapes = [(M, N, K) for M in (4, 8, 40, 128, 256)
+                  for N, K in path_nk]
         shapes.append((37, 1000, 900))      # not a block multiple; TMA: no
         shapes.append((37, 1000, 904))      # ragged, but TMA can take it
         cases = [(s, d, v) for s in shapes
@@ -997,12 +1055,16 @@ def main(argv=None) -> int:
              .astype(np.int32)]), new, eos=-1) for i in range(n)]
 
     def serve(cfg, params, reqs, slots, max_len, audit, quant_policy=None,
-              prefill_chunk=None):
+              prefill_chunk=None, settle=0.0, **engine_kw):
         """One engine run; the schedule stats and the launch counts cover
-        only this run (zeroed just before it, read just after)."""
+        only this run (zeroed just before it, read just after).  With
+        ``settle`` the whole trace is submitted, then ``settle`` seconds
+        pass before the first step (the policies read waited time off the
+        clock: every 1e-4 s SLO is then at risk from the first step)."""
         eng = ContinuousEngine(cfg, params, slots=slots, max_len=max_len,
                                audit=audit, quant_policy=quant_policy,
-                               prefill_chunk=prefill_chunk, device=dev)
+                               prefill_chunk=prefill_chunk, device=dev,
+                               **engine_kw)
         eng.schedule.reset()
         torch.cuda.synchronize()
         PA.launches.reset()
@@ -1011,7 +1073,16 @@ def main(argv=None) -> int:
         QM.reset_launches()
         SSD.launches.reset()
         t0 = time.perf_counter()
-        res = eng.run(reqs)
+        if settle:
+            for r in reqs:
+                eng.submit(r)
+            time.sleep(settle)
+            res = []
+            while len(res) < len(reqs):
+                eng.step()
+                res += eng.drain_results()
+        else:
+            res = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"paged_decode": PA.launches.count,
@@ -1046,6 +1117,7 @@ def main(argv=None) -> int:
     main_launches: dict = {}
     main_tokens: dict = {}
     quant_launches: dict = {}
+    quant_tokens: dict = {}
     full_params: dict = {}
     full_quant = dataclasses.replace(full, quant_serving=True)
 
@@ -1172,6 +1244,7 @@ def main(argv=None) -> int:
             quant_launches[b] = counts
             tokens[b] = [r.tokens.tolist() for r in res]
             engines[b] = eng
+        quant_tokens.update(tokens)
         per_step = 7 * full.n_layers            # q k v o gate up down
         fp_eng = ContinuousEngine(full, params_full(), slots=8,
                                   max_len=1024, device=dev)
@@ -1235,6 +1308,7 @@ def main(argv=None) -> int:
     m2 = CONFIGS.get("mamba2_2_7b")
     m2_params: dict = {}
     mamba_launches: dict = {}
+    mamba_tokens: dict = {}
 
     def params_m2():
         if not m2_params:
@@ -1262,6 +1336,7 @@ def main(argv=None) -> int:
             runs[b]["share_prefixes"] = eng.pool.share_prefixes
             mamba_launches[b] = counts
             tokens[b] = [r.tokens.tolist() for r in res]
+        mamba_tokens.update(tokens)
         same = sum(x == y for tx, ts in zip(tokens["xla"],
                                             tokens["scheduled"])
                    for x, y in zip(tx, ts))
@@ -1621,6 +1696,448 @@ def main(argv=None) -> int:
             raise AssertionError(f"spill_path: a bf16 GEMM took the CUDA-"
                                  f"core route: {spill_launches['by_route']}")
 
+    # -- 6e. sampled decoding at full width -----------------------------------
+    def sampled_requests(vocab, new_tokens):
+        """Four of phase 5's requests (the shortest prompts, rids 4-7),
+        ``new_tokens`` each, the odd ones at temperature 0.8."""
+        reqs = requests(np.random.default_rng(args.seed), 8, 64, 513, 32,
+                        vocab)[4:]
+        return [dataclasses.replace(r, max_new_tokens=new_tokens,
+                                    temperature=0.8 if r.rid % 2 else 0.0)
+                for r in reqs]
+
+    def p_sampled():
+        # (1) the sampler on fixed logits at the head's shape: 8 rows of
+        # 151936, each at its temperature, >= 20 000 draws a row, against
+        # softmax(logits / T) in total variation
+        V = full.vocab
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        z = torch.randn(8, V, generator=gen, device=dev) * 4.0
+        row_t = torch.tensor([0.5, 0.8, 1.0, 1.2] * 2, device=dev)
+        reps, calls = 256, 79
+        rows, temps = z.repeat(reps, 1), row_t.repeat(reps)
+        rid = torch.arange(8, device=dev).repeat(reps)
+        counts = torch.zeros(8, V, dtype=torch.float64, device=dev)
+        one = torch.ones(rows.shape[0], dtype=torch.float64, device=dev)
+        draw_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        for _ in range(calls):
+            tok = SAMPLING.sample(rows, temps, draw_gen)
+            counts.index_put_((rid, tok.long()), one, accumulate=True)
+        draws = reps * calls
+        probs = torch.softmax(z.double() / row_t.double()[:, None], -1)
+        tv = (0.5 * (counts / draws - probs).abs().sum(-1)).tolist()
+        bounds = [SAMPLING.softmax_tv_bound(probs[r], draws) for r in range(8)]
+        greedy_ok = bool(torch.equal(
+            SAMPLING.sample(z, torch.zeros(8, device=dev), draw_gen),
+            z.argmax(-1).int()))
+        t_sample = time_ms(lambda: SAMPLING.sample(z, row_t, draw_gen), 100)
+        t_argmax = time_ms(lambda: z.argmax(-1), 100)
+        del rows, temps, rid, counts, one
+        dist = {"draws_per_row": draws, "temperatures": row_t.tolist(),
+                "tv": tv, "bound": bounds, "greedy_rows_argmax": greedy_ok,
+                "sample_ms": t_sample, "argmax_ms": t_argmax}
+        print(f"sampler on fixed logits (8 x {V}, N(0, 16) logits), "
+              f"{draws} draws a row: TV to softmax(logits / T) "
+              + ", ".join(f"T={t:.1f} {x:.4f} <= {b:.4f}" for t, x, b in
+                          zip(row_t.tolist(), tv, bounds))
+              + f"; greedy rows = argmax: {greedy_ok}; [{card}] sample "
+              f"{t_sample * 1e3:.1f} us, argmax {t_argmax * 1e3:.1f} us a "
+              f"(8, {V}) call")
+        # (2) the engine: four of phase 5's requests, two at T = 0.8 mixed
+        # in one batch with two greedy ones, 8 tokens each, on the
+        # scheduled backend; a greedy-only run of the same requests gives
+        # the tokens and launches to match
+        models = {
+            "fp": (dataclasses.replace(full, gemm_backend="scheduled"),
+                   params_full, None, main_tokens),
+            "int8": (dataclasses.replace(full_quant, gemm_backend="scheduled"),
+                     params_quant, None, quant_tokens),
+            "mamba2": (dataclasses.replace(m2, gemm_backend="scheduled"),
+                       params_m2, m2.ssm.chunk, mamba_tokens)}
+        keys = ("paged_decode", "paged_decode_int8", "mpgemm",
+                "quant_matmul", "ssd_intra")
+        out, bad, new = {"distribution": dist}, [], 8
+        for name, (cfg, get_params, chunk, tok_ref) in models.items():
+            params = get_params()
+            mixed = sampled_requests(cfg.vocab, new)
+            runs = {}
+            for tag, seed, reqs in (
+                    ("greedy", args.seed, [dataclasses.replace(
+                        r, temperature=0.0) for r in mixed]),
+                    ("a", args.seed, mixed), ("a again", args.seed, mixed),
+                    ("b", args.seed + 1, mixed)):
+                eng, res, wall, cnt = serve(cfg, params, reqs, 8, 1024,
+                                            audit=True, prefill_chunk=chunk,
+                                            seed=seed)
+                runs[tag] = {"tokens": {r.rid: r.tokens.tolist()
+                                        for r in res},
+                             "launches": {k: cnt[k] for k in keys},
+                             "wall_s": wall, "steps": [eng.steps,
+                                                       eng.chunk_steps]}
+            greedy = runs["greedy"]["tokens"]
+            a, a2, b = (runs[t]["tokens"] for t in ("a", "a again", "b"))
+            odd = [r.rid for r in mixed if r.temperature > 0]
+            even = [r.rid for r in mixed if r.temperature == 0]
+            checks = {
+                "greedy rows = greedy run": all(a[i] == greedy[i]
+                                                for i in even),
+                "same seed, same tokens": a == a2,
+                "other seed, other tokens": any(a[i] != b[i] for i in odd),
+                "sampled rows differ from greedy": any(a[i] != greedy[i]
+                                                       for i in odd),
+                "launches = greedy run's": all(
+                    runs[t]["launches"] == runs["greedy"]["launches"]
+                    for t in runs),
+                f"{new} tokens a request": all(len(x) == new for x in
+                                           list(a.values())
+                                           + list(b.values()))}
+            if "scheduled" in tok_ref:
+                # the greedy rows also open as in the 8-request run of
+                # their main path (rows do not interact)
+                checks["greedy rows = main path's"] = all(
+                    a[i] == tok_ref["scheduled"][i][:new] for i in even)
+            out[name] = {"runs": runs, "checks": checks}
+            print(f"[{card}] sampled_path {name}: "
+                  + ", ".join(f"{t} {r['wall_s']:.2f} s {r['steps']}"
+                              for t, r in runs.items())
+                  + f"; launches {runs['a']['launches']}; {checks}")
+            bad += [f"{name}: {k}" for k, v in checks.items() if not v]
+        rep["sampled_path"] = out
+        if not greedy_ok or any(x > b for x, b in zip(tv, bounds)):
+            raise AssertionError(f"sampler off its softmax: {dist}")
+        if bad:
+            raise AssertionError(f"sampled_path checks failed: {bad}")
+
+    def small_fp32():
+        """Scaled-down qwen2 in fp32 at weights x4 (the CPU parity tests'
+        scale): where the token identity of preemption and speculation is
+        gated -- in bf16 the KV a resumed prefill or a verify step writes
+        is rounded apart from what decode steps write (reported below)."""
+        if "small" not in full_params:
+            base = CONFIGS.get("qwen2_0_5b").scaled_down()
+            cfg = dataclasses.replace(base, gemm_backend="scheduled")
+            full_params["small"] = (cfg, tree_map(
+                lambda _p, a: a * 4.0, N.init(base, args.seed, dev)),
+                tree_map(lambda _p, a: a * 4.0,
+                         N.init(base, args.seed + 1, dev)))
+        return full_params["small"]
+
+    def agreement(runs, ref):
+        """Share of tokens equal to the reference run's, per run (over
+        the shorter of the two streams)."""
+        return {k: sum(x == y for rid, t in r["tokens"].items()
+                       for x, y in zip(t, ref[rid]))
+                / sum(min(len(t), len(ref[rid]))
+                      for rid, t in r["tokens"].items())
+                for k, r in runs.items()}
+
+    #: K2's bf16 tolerance, relative to 1 + |reference|; twice it (one
+    #: deviation a run) bounds the gap of two tokens that part by rounding
+    BF16_TOL = 1e-2
+
+    def last_logits(cfg, params, seq):
+        """Logits after ``seq``: one row prefilled in one chunk, a route
+        neither compared run took."""
+        n, bs = len(seq), 16
+        nbs = -(-n // bs)
+        caches = N.expand_cache_pos(
+            N.init_paged_caches(cfg, 1, nbs + 1, bs, device=dev), 1)
+        table = torch.arange(1, nbs + 1, dtype=torch.int32,
+                             device=dev)[None]
+        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        toks = torch.tensor(np.asarray(seq, np.int32)[None], device=dev)
+        logits, _ = N.prefill_paged_chunk(
+            params, cfg, toks, caches,
+            torch.zeros(1, dtype=torch.int32, device=dev), table, lens,
+            lens - 1)
+        return logits[0].float()
+
+    def divergences(cfg, params, prompts, runs, ref):
+        """Each request whose tokens part from ``ref``'s: the first
+        position where they do, and the two tokens' logits there after
+        the reference's own prefix.  Two runs that differ only in
+        rounding part where those logits are within both runs'
+        deviations of each other: ``gap <= 2 * BF16_TOL * (1 + |logit|)``;
+        a fault (a wrong resume or rollback) picks a token far below."""
+        out = []
+        for name, r in runs.items():
+            for rid, toks in r["tokens"].items():
+                want = ref[rid]
+                p = next((j for j, (x, y) in enumerate(zip(toks, want))
+                          if x != y), None)
+                if p is None:
+                    continue
+                lg = last_logits(cfg, params,
+                                 [int(t) for t in prompts[rid]] + want[:p])
+                a, b = want[p], toks[p]
+                la, lb = lg[a].item(), lg[b].item()
+                top = torch.topk(lg, 2).values.tolist()
+                bound = 2 * BF16_TOL * (1 + max(abs(la), abs(lb)))
+                out.append({"run": name, "rid": rid, "pos": p,
+                            "tokens": [a, b], "logits": [la, lb],
+                            "gap": abs(la - lb), "bound": bound,
+                            "ranks": [int((lg > la).sum()),
+                                      int((lg > lb).sum())],
+                            "top2_gap": top[0] - top[1],
+                            "logit_std": lg.std().item(),
+                            "ok": abs(la - lb) <= bound})
+        for d in out:
+            print(f"  {d['run']} rid {d['rid']} parts at token {d['pos']}:"
+                  f" {d['tokens']} ranked {d['ranks']}, gap "
+                  f"{d['gap']:.4f} <= {d['bound']:.4f} {d['ok']} (top-2 "
+                  f"gap {d['top2_gap']:.4f}, logit std "
+                  f"{d['logit_std']:.3f})")
+        return out
+
+    # -- 6f. admission policies with preemption at full width ----------------
+    def policy_runs(cfg, params, policies):
+        out = {}
+        for policy, kv_blocks in policies:
+            eng, res, wall, cnt = serve(
+                cfg, params, TRACES.overload_trace(12, cfg.vocab), 4,
+                TRACES.POLICY_MAX_LEN, audit=True, settle=0.01,
+                policy=policy, kv_blocks=kv_blocks)
+            ps = eng.pool.stats()
+            out[f"{policy} @{kv_blocks or 'unconstrained'}"] = {
+                "tokens": {r.rid: r.tokens.tolist() for r in res},
+                "preemptions": eng.preemptions, "resumes": eng.resumes,
+                "admissions": eng.admissions,
+                "avg_pool_util": eng.avg_pool_util(),
+                "p95_ttft_steps": float(np.percentile(
+                    [r.ttft_steps for r in res], 95)),
+                "steps": [eng.steps, eng.chunk_steps],
+                "backoffs": ps["backoffs"],
+                "shared_token_hits": ps["shared_token_hits"],
+                "evictions": ps["evictions"], "wall_s": wall,
+                "schedule_misses": eng.schedule.stats()["misses"],
+                "launches": {k: cnt[k] for k in ("paged_decode", "mpgemm")}}
+        return out
+
+    def p_policy():
+        tight = TRACES.OVERLOAD_KV_BLOCKS
+        # full width, bf16: the five policies where FIFO's head blocks,
+        # slo_preempt at 32 blocks, where its preemption is for a slot
+        # and the resumption maps the victim's cached blocks (at 20 the
+        # at-risk admission itself evicts them), and an unconstrained pool
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        runs = policy_runs(cfg, params_full(),
+                           [(p, tight) for p in POLICY_NAMES]
+                           + [("slo_preempt", 32), ("fifo", None)])
+        ref = runs[f"fifo @{tight}"]["tokens"]
+        agree = agreement(runs, ref)
+        for k, r in runs.items():
+            print(f"[{card}] policy_path {k}: {r['preemptions']} "
+                  f"preemptions, {r['resumes']} resumes, mean pool util "
+                  f"{r['avg_pool_util']:.4f}, p95 TTFT {r['p95_ttft_steps']}"
+                  f" dispatches, {r['backoffs']} backoffs, "
+                  f"{r['shared_token_hits']} shared-token hits, steps "
+                  f"{r['steps']}, {r['wall_s']:.2f} s, launches "
+                  f"{r['launches']}, tokens equal to fifo's {agree[k]:.4f}")
+        prompts = {r.rid: r.prompt
+                   for r in TRACES.overload_trace(12, full.vocab)}
+        parted = divergences(cfg, params_full(), prompts, runs, ref)
+        # scaled-down fp32: every run token-identical
+        scfg, sparams, _ = small_fp32()
+        small = policy_runs(scfg, sparams,
+                            [(p, tight) for p in POLICY_NAMES]
+                            + [("fifo", None), ("slo_preempt", 32)])
+        sref = small[f"fifo @{tight}"]["tokens"]
+        rep["policy_path"] = {"full_width": runs, "agreement": agree,
+                              "divergences": parted,
+                              "scaled_down_fp32": small}
+        checks = {
+            "non-preempting policies identical (bf16)": all(
+                runs[f"{p} @{tight}"]["tokens"] == ref
+                for p in ("best_fit", "model_fit")),
+            "fifo head blocks": runs[f"fifo @{tight}"]["backoffs"] > 0,
+            "slo_preempt preempts": runs[f"slo_preempt @{tight}"][
+                "preemptions"] > 0,
+            "resumes skip cached prefill": runs["slo_preempt @32"][
+                "resumes"] > 0 and runs["slo_preempt @32"][
+                "shared_token_hits"] > 0,
+            "no schedule miss": all(r["schedule_misses"] == 0 for r in
+                                    list(runs.values())
+                                    + list(small.values())),
+            "bf16: streams part only within rounding": all(
+                d["ok"] for d in parted),
+            "fp32: every run identical": all(r["tokens"] == sref
+                                             for r in small.values()),
+            "fp32: preempted": small[f"slo_preempt @{tight}"][
+                "preemptions"] > 0,
+            "fp32: varied tokens": len({t for v in sref.values()
+                                        for t in v}) > 8}
+        print(f"policy_path checks: {checks}")
+        rep["policy_path_checks"] = checks
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            raise AssertionError(f"policy_path checks failed: {bad}")
+
+    # -- 6g. speculative decoding at full width -------------------------------
+    def spec_runs(cfg, params, other, slots, divergent_new=24):
+        """Vanilla, ngram, self-draft and divergent draft on the
+        repetition trace; the divergent draft (all rejected, k + 1 draft
+        steps a token) decodes ``divergent_new`` tokens a request."""
+        reqs = TRACES.rep_trace(8, cfg.vocab)
+        out = {}
+        for name, spec in (("vanilla", None), ("ngram", "ngram"),
+                           ("self", ModelDraft(cfg, params)),
+                           ("divergent", ModelDraft(cfg, other))):
+            kw = {} if spec is None else {"spec": spec, "spec_k": 4}
+            if name == "divergent":
+                reqs = TRACES.rep_trace(8, cfg.vocab,
+                                        max_new=divergent_new)
+            eng, res, wall, cnt = serve(cfg, params, reqs, slots,
+                                        TRACES.SPEC_MAX_LEN, audit=True,
+                                        **kw)
+            out[name] = {"tokens": {r.rid: r.tokens.tolist() for r in res},
+                         "steps": [eng.steps, eng.chunk_steps],
+                         "spec": eng.spec_stats(), "wall_s": wall,
+                         "schedule_misses": eng.schedule.stats()["misses"],
+                         "launches": {k: cnt[k] for k in
+                                      ("paged_decode", "mpgemm")}}
+        return out
+
+    def verify_vs_decode(cfg, params, cur=None):
+        """The repetition trace's 8 prompts prefilled into one cache;
+        then a decode step of the next token (``cur``, else the prefill's
+        argmax), and on a copy of the cache a verify call of that token
+        and four drafts.  Returns position 0 of the verify, the decode
+        step's logits and ``cur``: both see the same inputs."""
+        prompts = np.stack([r.prompt for r in
+                            TRACES.rep_trace(8, cfg.vocab)])
+        B, n, bs = prompts.shape[0], prompts.shape[1], 16
+        nbs = TRACES.SPEC_MAX_LEN // bs
+        caches = N.expand_cache_pos(
+            N.init_paged_caches(cfg, B, 1 + B * nbs, bs, device=dev), B)
+        table = torch.arange(1, 1 + B * nbs, dtype=torch.int32,
+                             device=dev).reshape(B, nbs)
+        ids = torch.arange(B, dtype=torch.int32, device=dev)
+        toks = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        first, caches = N.prefill_paged_chunk(params, cfg, toks, caches,
+                                              ids, table, lens, lens - 1)
+        if cur is None:
+            cur = first.argmax(-1).to(torch.int32)
+        twin = tree_map(lambda _p, a: a.clone(), caches)
+        dec, _ = N.decode_step(params, cfg, cur[:, None], caches,
+                               lens.clone(), table,
+                               torch.ones(B, dtype=torch.int32, device=dev))
+        ver, _ = N.verify_paged_chunk(
+            params, cfg, torch.cat([cur[:, None], toks[:, 2:6]], 1), twin,
+            ids, table, torch.full((B,), 5, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        if tuple(ver.shape) != (B, 5, cfg.vocab) or not bool(
+                torch.isfinite(ver).all() and torch.isfinite(dec).all()):
+            raise AssertionError(f"verify logits {tuple(ver.shape)} not "
+                                 f"(8, 5, vocab) or not finite")
+        return ver[:, 0].float(), dec.float(), cur
+
+    def verify_gate(cfg, params):
+        """Position 0 of a verify against a decode step on the same
+        cache, in bf16 and, with the weights cast up, in fp32 (the same
+        tokens).  In fp32 the two routes agree within K2's fp32
+        tolerance; in bf16 they may differ by what rounding takes each
+        from fp32: at most twice the bf16 decode's distance from the fp32
+        decode."""
+        v16, d16, cur = verify_vs_decode(cfg, params)
+        c32 = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+        v32, d32, _ = verify_vs_decode(
+            c32, tree_map(lambda _p, a: a.float(), params), cur)
+        return {"fp32_rel": ((v32 - d32).abs() / (1 + d32.abs())).max()
+                .item(),
+                "bf16_abs": (v16 - d16).abs().max().item(),
+                "bf16_rel": ((v16 - d16).abs() / (1 + d16.abs())).max()
+                .item(),
+                "bf16_vs_fp32_abs": (d16 - d32).abs().max().item(),
+                "argmax_equal": int((v16.argmax(-1)
+                                     == d16.argmax(-1)).sum())}
+
+    def p_spec():
+        from torch.profiler import ProfilerActivity, profile
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        params = params_full()
+        # the divergent draft: weights from another seed, x4, so that its
+        # greedy stream differs from the target's
+        other = tree_map(lambda _p, a: a * 4, N.init(full, args.seed + 1,
+                                                     dev))
+        runs = spec_runs(cfg, params, other, 8, divergent_new=8)
+        del other
+        vref = runs["vanilla"]["tokens"]
+        agree = agreement(runs, vref)
+        for name, r in runs.items():
+            print(f"[{card}] spec_path {name}: {r['steps']} steps, "
+                  f"{r['wall_s']:.2f} s, {r['spec']}, launches "
+                  f"{r['launches']}, tokens equal to vanilla's "
+                  f"{agree[name]:.4f}")
+        prompts = {r.rid: r.prompt
+                   for r in TRACES.rep_trace(8, full.vocab)}
+        parted = divergences(cfg, params, prompts, runs, vref)
+        vd = verify_gate(cfg, params)
+        print(f"[{card}] verify logits at position 0 against a decode "
+              f"step's on the same cache (8 x {full.vocab}): fp32 max|diff|"
+              f" / (1 + |decode|) {vd['fp32_rel']:.3e} (tol 1e-4); bf16 "
+              f"max|diff| {vd['bf16_abs']:.4f} against the bf16 decode's "
+              f"max|bf16 - fp32| {vd['bf16_vs_fp32_abs']:.4f} (bound: "
+              f"twice), relative {vd['bf16_rel']:.3e}; argmax equal "
+              f"{vd['argmax_equal']}/8")
+        scfg, sparams, sother = small_fp32()
+        small = spec_runs(scfg, sparams, sother, 4)
+        for name, r in small.items():
+            print(f"scaled-down fp32 spec_path {name}: {r['steps']} steps, "
+                  f"{r['spec']}")
+
+        def step_device_ms(eng):
+            """Device time of one engine step under torch.profiler."""
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            return kernel_ms(prof)
+
+        prof = {}
+        for name, kw in (("decode", {}), ("verify (ngram, k = 4)",
+                                         {"spec": "ngram", "spec_k": 4})):
+            eng = ContinuousEngine(cfg, params, slots=8,
+                                   max_len=TRACES.SPEC_MAX_LEN, device=dev,
+                                   **kw)
+            for r in TRACES.rep_trace(8, full.vocab):
+                eng.submit(r)
+            eng.step()                       # the prefill chunk
+            eng.step()
+            ms, kernels = step_device_ms(eng)
+            prof[name] = {"device_ms": ms, "kernels": kernels}
+        rep["spec_path"] = {"full_width": runs, "agreement": agree,
+                            "divergences": parted, "verify_vs_decode": vd,
+                            "scaled_down_fp32": small, "step_profile": prof}
+        print(f"[{card}] spec_path step device time: "
+              + ", ".join(f"{k} {v['device_ms']:.3f} ms ({v['kernels']} "
+                          f"kernels)" for k, v in prof.items()))
+        sref = small["vanilla"]["tokens"]
+        checks = {
+            "divergent draft rejected": runs["divergent"]["spec"][
+                "accepted"] < runs["divergent"]["spec"]["drafted"],
+            "self-draft accepted": runs["self"]["spec"][
+                "avg_accept_len"] > 1,
+            "no schedule miss": all(r["schedule_misses"] == 0 for r in
+                                    list(runs.values())
+                                    + list(small.values())),
+            "fp32: verify logits = decode's": vd["fp32_rel"] <= 1e-4,
+            "bf16: verify logits = decode's within rounding":
+                vd["bf16_abs"] <= 2 * vd["bf16_vs_fp32_abs"],
+            "bf16: streams part only within rounding": all(
+                d["ok"] for d in parted),
+            "fp32: tokens identical to vanilla": all(
+                r["tokens"] == sref for r in small.values()),
+            "fp32: divergent draft rejected": small["divergent"]["spec"][
+                "accepted"] < small["divergent"]["spec"]["drafted"]}
+        print(f"spec_path checks: {checks}")
+        rep["spec_path_checks"] = checks
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            raise AssertionError(f"spec_path checks failed: {bad}")
+
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
 
@@ -1708,6 +2225,7 @@ def main(argv=None) -> int:
         for M in (8, 256):
             shapes += [(M, N_, K_) for N_, K_ in path_nk[:4]]
         shapes.append((8, 151936, 896))      # head rows = slots
+        shapes.append((40, 151936, 896))     # spec verify head, k = 4
         # mamba2's in_proj, out_proj and head at decode (8 slots) and
         # chunk rows (8 x 256)
         shapes += [(M, N_, K_) for M in (8, 2048) for N_, K_ in m2_nk]
@@ -2059,6 +2577,8 @@ def main(argv=None) -> int:
               ("quant_scaled_down_fp32", p_quant_small),
               ("mamba2_scaled_down_fp32", p_mamba_small),
               ("limb_path", p_limb_path), ("spill_path", p_spill_path),
+              ("sampled_path", p_sampled), ("policy_path", p_policy),
+              ("spec_path", p_spec),
               ("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:

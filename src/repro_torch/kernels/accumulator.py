@@ -27,12 +27,23 @@ def combine_diagonals(diags: torch.Tensor, limb_bits: int
     shifted by 64 bits or more add nothing and are skipped."""
     if diags.dtype != torch.int32:
         raise TypeError(f"diagonal sums must be int32, got {diags.dtype}")
-    acc = diags[0].to(torch.int64)
+    return combine_wide_diagonals(diags.to(torch.int64), limb_bits)
+
+
+def combine_wide_diagonals(diags: torch.Tensor, limb_bits: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`combine_diagonals` for int64 sums: the exact fold of
+    diagonals that an int32 plane could not hold (a sum of 2^31 at
+    K = 2^17, ``limb_gemm.limb_matmul_fused_ref``)."""
+    if diags.dtype != torch.int64:
+        raise TypeError(f"wide diagonal sums must be int64, got "
+                        f"{diags.dtype}")
+    acc = diags[0]
     for d in range(1, diags.shape[0]):
         s = d * limb_bits
         if s >= 64:
             break
-        acc = acc + (diags[d].to(torch.int64) << s)
+        acc = acc + (diags[d] << s)
     return (acc >> 32).to(torch.int32), (acc & _MASK32).to(torch.int32)
 
 

@@ -5,9 +5,14 @@ An exact INT16/INT32 GEMM runs as ``la * lb`` int8 x int8 -> int32 limb
 GEMMs, grouped by output anti-diagonal ``d = i + j`` and recombined by the
 multi-precision accumulator (``kernels.accumulator``).  Operands are cut
 into balanced base-128 signed digits (:func:`limb_decompose`), so every
-digit fits int8 and every anti-diagonal sum stays exact in int32 for K up
-to 2^17 (at most four full-range digit pairs, 4 * 64 * 64 = 2^14, meet
-on one diagonal: the top digit of an int32 lies in [-8, 8]).
+digit fits int8.  At most four full-range digit pairs meet on one
+diagonal (the top digit of an int32 lies in [-8, 8]): 4 * 64 * 64 = 2^14
+a k, so an anti-diagonal sum stays inside int32 for K < 2^17 and reaches
+2^31 at K = 2^17 only when both sides have four or more digits.  There
+the planes entry wraps, as the reference's kernel does, while
+``limb_matmul`` stays exact: the fused entry splits such a K over two
+cluster ranks (each sum at most 2^30, added in 64-bit) and its plain
+version folds the planes in int64.
 
 ``csrc/limb_gemm.cu`` (the port of the reference's Pallas
 ``limb_gemm_diagonals``) is one int8 tensor-core mainloop with two
@@ -40,7 +45,7 @@ import torch
 
 from repro_torch.core.tiling import MAX_CLUSTER, NUM_SMS
 from repro_torch.kernels import _build
-from repro_torch.kernels.accumulator import combine_diagonals
+from repro_torch.kernels.accumulator import combine_wide_diagonals
 from repro_torch.kernels.ref import LIMB_BITS
 
 #: launches of the CUDA kernel, both entries (reset before a run, read
@@ -227,12 +232,23 @@ def limb_plan(M: int, N: int, K: int, a_digits: int, b_digits: int,
         # still cover the SMs
         auto_qs = next(q for q in (4, 2, 1) if q == 1 or (
             q <= _ceil(qlen, tq) and ptiles * _ceil(qlen, q * tq) >= NUM_SMS))
+    # four full-range digit pairs on plane 3 reach 2^31 in one CTA's
+    # int32 plane at K = 2^17: the fused entry, which adds its ranks'
+    # sums in 64-bit, needs two ranks there to stay exact
+    wide = fused and not limbs and min(a_digits, b_digits) >= 4 \
+        and K >= MAX_K
+    if wide:
+        auto_ranks, auto_qs = max(auto_ranks, 2), 1
     ranks = auto_ranks if ranks is None else ranks
     qs = auto_qs if qs is None else qs
     if not 1 <= ranks <= min(MAX_CLUSTER, nk) or qs not in (1, 2, 4) \
             or (qs > 1 and (nk > 1 or ranks > 1)):
         raise ValueError(f"limb GEMM {(M, N, K)}: {ranks} ranks and {qs} "
                          f"sub-tiles do not fit {nk} K stages")
+    if wide and ranks < 2:
+        raise ValueError(f"limb GEMM {(M, N, K)} with {a_digits} and "
+                         f"{b_digits} digits in one rank: a plane would "
+                         f"reach 2^31")
     rows_a, cols_b = (qs * tq, tp) if swap else (tp, qs * tq)
     a_planes = a_digits if limbs else 1
     b_planes = b_digits if limbs else 1
@@ -289,31 +305,41 @@ def limb_decompose(x: torch.Tensor, n_limbs: int, limb_bits: int = 7
     return torch.stack(digits, dim=0)
 
 
-def limb_gemm_diagonals_ref(a_limbs: torch.Tensor, b_limbs: torch.Tensor
-                            ) -> torch.Tensor:
-    """Plain version: S_d = sum_{i+j=d} A_i @ B_j as (la+lb-1, M, N)
-    int32.  The la*lb limb products are taken in float64 and cast once:
-    every partial sum is an integer below 2^31 for K <= 2^17, far inside
-    float64's 2^53, so the result is exact on either device (PyTorch has
-    no integer matmul on CUDA)."""
+def _diagonal_sums64(a_limbs: torch.Tensor, b_limbs: torch.Tensor
+                     ) -> torch.Tensor:
+    """S_d = sum_{i+j=d} A_i @ B_j as (la+lb-1, M, N) int64, exact.  The
+    la*lb limb products are taken in float64: every partial sum is an
+    integer of magnitude at most 2^31 for K <= 2^17, far inside float64's
+    2^53, on either device (PyTorch has no integer matmul on CUDA)."""
     la, lb = a_limbs.shape[0], b_limbs.shape[0]
     a64, b64 = a_limbs.double(), b_limbs.double()
     out = a64.new_zeros((la + lb - 1, a_limbs.shape[1], b_limbs.shape[2]))
     for i in range(la):
         for j in range(lb):
             out[i + j] += a64[i] @ b64[j]
-    return out.to(torch.int32)
+    return out.to(torch.int64)
+
+
+def limb_gemm_diagonals_ref(a_limbs: torch.Tensor, b_limbs: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version: S_d = sum_{i+j=d} A_i @ B_j as (la+lb-1, M, N)
+    int32.  Exact for K < 2^17; at K = 2^17 a sum of four full-range
+    digit pairs a k can reach 2^31 and wraps to -2^31, as the kernel's
+    (and the reference's) int32 planes do -- ``limb_matmul`` does not go
+    through these planes."""
+    return _diagonal_sums64(a_limbs, b_limbs).to(torch.int32)
 
 
 def limb_matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, nla: int,
                           nlb: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the fused entry: the composition it replaces,
     ``combine_diagonals(limb_gemm_diagonals_ref(limb_decompose(a, nla),
-    limb_decompose(b, nlb)))`` -- values wider than their digits lose
-    the remainder, as the decomposition drops it."""
-    return combine_diagonals(
-        limb_gemm_diagonals_ref(limb_decompose(a, nla, LIMB_BITS),
-                                limb_decompose(b, nlb, LIMB_BITS)),
+    limb_decompose(b, nlb)))``, with the planes folded in int64 so that
+    a plane of 2^31 (K = 2^17) stays exact -- values wider than their
+    digits lose the remainder, as the decomposition drops it."""
+    return combine_wide_diagonals(
+        _diagonal_sums64(limb_decompose(a, nla, LIMB_BITS),
+                         limb_decompose(b, nlb, LIMB_BITS)),
         LIMB_BITS)
 
 

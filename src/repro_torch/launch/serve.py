@@ -1,7 +1,8 @@
 """Serving driver of the port: random weights from a seed, a batch of
-random greedy requests through the paged continuous-batching engine, and
-a report of throughput, time to first token (TTFT), time per output token
-(TPOT), schedule-cache hits and KV-pool use.
+random requests through the paged continuous-batching engine, and a
+report of throughput, time to first token (TTFT), time per output token
+(TPOT), schedule-cache hits, KV-pool use, the policy's preemptions and
+pool utilisation, and the speculation counters.
 
     python -m repro_torch.launch.serve --arch qwen2_0_5b
     python -m repro_torch.launch.serve --arch qwen2_0_5b --scaled-down \\
@@ -9,10 +10,17 @@ a report of throughput, time to first token (TTFT), time per output token
     python -m repro_torch.launch.serve --arch qwen2_0_5b --quant
     python -m repro_torch.launch.serve --arch mamba2_2_7b \
         [--gemm-backend scheduled]
+    python -m repro_torch.launch.serve --arch qwen2_0_5b \
+        --policy slo_preempt --ttft-slo 0.05 --arrival-ms 20
+    python -m repro_torch.launch.serve --arch qwen2_0_5b \
+        --spec ngram|model:qwen2_0_5b --spec-k 4
+    python -m repro_torch.launch.serve --arch qwen2_0_5b --temperature 0.8
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
 an SSM config (mamba2) raises ``NotImplementedError``: its quantized
-path is not ported yet.
+path is not ported yet; ``--spec`` on it is refused, as the reference
+refuses it.  ``--arrival-ms`` submits each request after an exponential
+gap of that mean (the engine steps meanwhile).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import network as N
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.serving.engine import ContinuousEngine, Request
+from repro_torch.serving.policy import POLICY_NAMES
+from repro_torch.serving.spec import ModelDraft
 
 
 def _pct(xs: list[float], q: float) -> float:
@@ -56,6 +66,29 @@ def main(argv=None) -> dict:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arrival-ms", type=float, default=0.0,
+                    help="mean inter-arrival gap; 0 = offered all at once")
+    ap.add_argument("--policy", choices=POLICY_NAMES, default="fifo",
+                    help="admission policy: fifo = arrival order; best_fit "
+                         "= the reservation that best fits the free list; "
+                         "slo_preempt = FIFO, TTFT deadlines jump the queue "
+                         "and may preempt a decoder (it resumes through the "
+                         "prefix cache); model_fit / model_preempt = the "
+                         "same on modeled step costs")
+    ap.add_argument("--ttft-slo", type=float, default=0.0,
+                    help="TTFT deadline of every request in seconds (0 = "
+                         "none); the preempting policies act on it")
+    ap.add_argument("--spec", default=None, metavar="ngram|model:<arch>",
+                    help="speculative decoding (greedy only): 'ngram' = "
+                         "prompt lookup; 'model:<arch>' = a draft model on "
+                         "the target's block tables (the target's arch "
+                         "self-drafts with its weights, another arch runs "
+                         "random weights from --seed + 1)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens verified a step at most")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of every request (0 = "
+                         "greedy)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -63,6 +96,7 @@ def main(argv=None) -> dict:
     if args.scaled_down:
         cfg = cfg.scaled_down()
     cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend).validate()
+    base_cfg = cfg
     quant_policy = None
     if args.quant:
         cfg = dataclasses.replace(cfg, quant_serving=True,
@@ -73,20 +107,49 @@ def main(argv=None) -> dict:
                         else QuantPolicy())
     params = N.init(cfg, args.seed, dev)
 
+    spec = None
+    if args.spec == "ngram":
+        spec = "ngram"
+    elif args.spec and args.spec.startswith("model:"):
+        draft_cfg = CONFIGS.get(args.spec.split(":", 1)[1])
+        if args.scaled_down:
+            draft_cfg = draft_cfg.scaled_down()
+        if draft_cfg.name == base_cfg.name:
+            # self-draft on the target's weights; under --quant the engine
+            # quantizes its own copy and the draft keeps the fp config
+            # (only block tables are shared)
+            spec = ModelDraft(base_cfg, params)
+        else:
+            spec = ModelDraft(draft_cfg, N.init(draft_cfg, args.seed + 1,
+                                                dev))
+    elif args.spec:
+        raise SystemExit(f"--spec {args.spec!r}: expected 'ngram' or "
+                         f"'model:<arch>'")
+    if spec is not None and args.temperature > 0:
+        raise SystemExit("--spec is greedy-only: drop --temperature")
+
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(3, cfg.vocab, max(1, int(
                         rng.integers(args.prompt_len // 2,
                                      args.prompt_len + 1)))).astype(np.int32),
                     max_new_tokens=max(1, int(rng.integers(
-                        args.max_new // 2, args.max_new + 1))), eos=-1)
+                        args.max_new // 2, args.max_new + 1))), eos=-1,
+                    temperature=args.temperature,
+                    ttft_slo=args.ttft_slo or None)
             for i in range(args.requests)]
     eng = ContinuousEngine(cfg, params, slots=args.slots,
-                           max_len=args.max_len, quant_policy=quant_policy,
+                           max_len=args.max_len, seed=args.seed,
+                           policy=args.policy, spec=spec,
+                           spec_k=args.spec_k, quant_policy=quant_policy,
                            device=dev)
     eng.schedule.reset()        # count only the run, not construction
     t0 = time.perf_counter()
-    results = eng.run(reqs)
+    if args.arrival_ms > 0:
+        results = _run_arrivals(eng, reqs, rng.exponential(
+            args.arrival_ms / 1e3, len(reqs)).cumsum())
+    else:
+        results = eng.run(reqs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -109,7 +172,11 @@ def main(argv=None) -> dict:
               "quant": bool(args.quant), "kv_quantized": ps["quantized"],
               "pool_peak_blocks": ps["peak_used"],
               "pool_blocks": ps["num_blocks"],
-              "shared_token_hits": ps["shared_token_hits"]}
+              "shared_token_hits": ps["shared_token_hits"],
+              "policy": eng.policy.name, "preemptions": eng.preemptions,
+              "resumes": eng.resumes, "avg_pool_util": eng.avg_pool_util(),
+              "ttft_steps_p95": _pct([r.ttft_steps for r in results], 95),
+              "spec": eng.spec_stats()}
     if args.quant:
         kv_kind = "int8 KV blocks" if cfg.quant_kv else "fp KV blocks"
         print(f"[serve] int8 serving: QuantTensor weights + {kv_kind}")
@@ -123,7 +190,34 @@ def main(argv=None) -> dict:
     print(f"[serve] kv pool: peak {ps['peak_used']}/{ps['num_blocks']} "
           f"blocks, {ps['shared_token_hits']} shared-prefix token hits, "
           f"peak KV {kv['peak']} / allocated {kv['allocated']} B")
+    print(f"[serve] policy {eng.policy.name}: mean pool util "
+          f"{report['avg_pool_util']:.2f}, {eng.preemptions} preemptions, "
+          f"{ps['backoffs']} admission backoffs, TTFT p95 "
+          f"{report['ttft_steps_p95']:.0f} engine steps")
+    if eng.spec is not None:
+        sp = report["spec"]
+        print(f"[serve] spec {sp['provider']} k={sp['k']}: "
+              f"{sp['verify_steps']} verify steps, {sp['accepted']}/"
+              f"{sp['drafted']} drafts accepted, mean accept length "
+              f"{sp['avg_accept_len']:.2f}")
     return report
+
+
+def _run_arrivals(eng: ContinuousEngine, reqs: list[Request],
+                  arrivals: np.ndarray) -> list:
+    """Submit each request when its arrival time (seconds from now) has
+    passed, stepping the engine meanwhile; results in completion order."""
+    t0 = time.perf_counter()
+    out, nxt = [], 0
+    while len(out) < len(reqs):
+        now = time.perf_counter() - t0
+        while nxt < len(reqs) and arrivals[nxt] <= now:
+            eng.submit(reqs[nxt])
+            nxt += 1
+        if eng.step() == 0 and not eng._pending and nxt < len(reqs):
+            time.sleep(max(0.0, arrivals[nxt] - now))
+        out.extend(eng.drain_results())
+    return out
 
 
 if __name__ == "__main__":

@@ -150,7 +150,7 @@ def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
            caches: PyTree, pos_offset: torch.Tensor,
            block_table: torch.Tensor, pos_advance: torch.Tensor | None,
            seq_lens: torch.Tensor | None,
-           last_index: torch.Tensor | None = None
+           last_index: torch.Tensor | None = None, all_rows: bool = False
            ) -> tuple[torch.Tensor, PyTree]:
     x = embed_apply(params["embed"], tokens, _dtype(cfg.compute_dtype))
     x, new_caches = _run_blocks(params, cfg, x, pos_offset=pos_offset,
@@ -164,6 +164,9 @@ def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = (params["embed"]["table"] if cfg.tie_embeddings
             else params["lm_head"])
+    if all_rows:                 # verify: logits at every position
+        return head_apply(head, x, cfg.final_logit_softcap,
+                          backend=gemm_backend(cfg)), new_caches
     if last_index is not None:   # ragged: each row's last REAL token
         x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))
@@ -203,6 +206,26 @@ def prefill_paged_chunk(params: PyTree, cfg: ModelConfig,
     pos0 = _first_pos_leaf(view)
     logits, new_view = _serve(params, cfg, tokens, view, pos0, block_rows,
                               lens, lens, last_index)
+    return logits, scatter_slot_view(caches, new_view, slot_ids)
+
+
+def verify_paged_chunk(params: PyTree, cfg: ModelConfig,
+                       tokens: torch.Tensor, caches: PyTree,
+                       slot_ids: torch.Tensor, block_rows: torch.Tensor,
+                       seq_lens: torch.Tensor) -> tuple[torch.Tensor, PyTree]:
+    """Speculative verify step: tokens (B, L) = ``[cur_tok, draft_1 ..
+    draft_k]`` right-padded to L = spec_k + 1, seq_lens (B,) the real
+    count (0 = masked row).  The chunked prefill's ragged layout, but the
+    head applies to all B*L rows -- the ``(B*L, vocab, d)`` GEMM the
+    engine registers -- and fp32 logits (B, L, V) come back:
+    ``argmax(logits[i, j])`` is the target's token after ``tokens[i, j]``.
+    Cursors advance by ``seq_lens`` (full acceptance); a rejection is
+    rolled back with :func:`set_slot_pos`."""
+    lens = seq_lens.to(torch.int32)
+    view = gather_slot_view(caches, slot_ids)
+    pos0 = _first_pos_leaf(view)
+    logits, new_view = _serve(params, cfg, tokens, view, pos0, block_rows,
+                              lens, lens, all_rows=True)
     return logits, scatter_slot_view(caches, new_view, slot_ids)
 
 

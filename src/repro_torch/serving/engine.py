@@ -1,5 +1,5 @@
-"""Paged continuous-batching serving engine (port of the paged, greedy,
-``fifo`` path of ``repro.serving.engine.ContinuousEngine``).
+"""Paged continuous-batching serving engine (port of the paged path of
+``repro.serving.engine.ContinuousEngine``).
 
 Requests are admitted per SLOT: when a slot finishes its request, the
 next queued request is admitted into it while the other slots keep
@@ -14,11 +14,34 @@ decoding.  The design, as in the reference:
     fixed-size chunks; each engine step runs at most one chunk batch (all
     admitting slots in one call) and then one decode step over the
     decoding slots, so resident slots never stall longer than one chunk.
+  * **Sampling.**  Each step's tokens come from ``sampling.sample`` on the
+    engine's device: greedy where a request's temperature is 0, else a
+    draw from ``softmax(logits / T)`` with the engine's
+    ``torch.Generator`` (seeded by ``seed``).  One host sync a step: the
+    readback of the tokens.
+  * **Scheduling policies.**  Which queued request a free slot admits,
+    and which decoding slot is preempted for a request at risk of its
+    TTFT deadline, is decided by a ``serving.policy`` policy over
+    immutable views (``fifo``, ``best_fit``, ``slo_preempt``,
+    ``model_fit``, ``model_preempt``).  A preempted request's whole
+    sequence is registered in the prefix cache before its slot is
+    released, and it re-queues with its tokens: resumption skips the
+    cached prefill, and greedy output equals a never-preempted run.
+    Where prefixes are not shared (recurrent configs) resumption
+    re-prefills the sequence, which rebuilds the recurrent state.
+  * **Speculative decoding** (``spec=``, attention configs, greedy
+    requests).  A ``serving.spec`` provider drafts up to ``spec_k`` tokens
+    a slot, ONE ``network.verify_paged_chunk`` call a step scores them
+    all, the longest prefix matching the target's argmax is accepted and
+    the rest is rolled back (cursors with ``set_slot_pos``, blocks with
+    ``KVPool.truncate``; admissions reserve lazily with ``KVPool.extend``).
+    A slot whose span the pool cannot host is preempted.
   * **ScheduleCache.**  The step's projection GEMMs (and the paged-decode
-    gather GEMMs) are resolved through the paper-§5 schedule cache at
-    construction, so the steady state is pure cache hits; with
-    ``gemm_backend="scheduled"`` the engine adopts the per-config
-    backend's cache, which the model's mpgemm launches consult.
+    gather GEMMs, and the verify shapes under ``spec=``) are resolved
+    through the paper-§5 schedule cache at construction, so the steady
+    state is pure cache hits; with ``gemm_backend="scheduled"`` the
+    engine adopts the per-config backend's cache, which the model's
+    mpgemm launches consult.
   * **Quantized serving.**  Under ``cfg.quant_serving`` the weight tree is
     rewritten to int8 QuantTensors at construction (``quant_policy``; the
     tied embedding is never quantized) and, where ``cfg.quant_kv``, the
@@ -27,11 +50,10 @@ decoding.  The design, as in the reference:
     §5 explorer picks (``precision_plan``), so a quantized run is pure
     cache hits too.
 
-The reference's ten jitted programs become plain calls of the
+The reference's jitted programs become plain calls of the
 ``models.network`` serving functions; the pools are updated in place.
-Admission is in arrival order and decoding is greedy (argmax on the
-card).  Sampling, the dense engine, other admission policies,
-speculation and the resilience layer are later slices (ROADMAP.md).
+The dense engine, the async API, hard deadlines and load shedding, the
+tracer and the resilience layer are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -56,6 +78,15 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.quant.policy import (QuantPolicy, choose_precision,
                                       serving_quant_params)
 from repro_torch.serving.kv_pool import KVPool, blocks_for
+from repro_torch.serving.policy import (PendingView, SchedulerPolicy,
+                                        SlotView, make_policy)
+from repro_torch.serving.sampling import sample
+from repro_torch.serving.spec import DraftProvider, make_provider
+
+
+#: clean spec steps after which a degraded speculation depth grows by one
+#: (the reference's ``ResilienceConfig.spec_recover_steps`` default)
+SPEC_RECOVER_STEPS = 8
 
 
 @dataclasses.dataclass
@@ -63,8 +94,14 @@ class Request:
     rid: int
     prompt: np.ndarray          # (S,) int32
     max_new_tokens: int = 32
-    temperature: float = 0.0    # 0 => greedy (the only mode ported)
+    temperature: float = 0.0    # 0 => greedy
     eos: int = 2
+    #: TTFT deadline in seconds (None: best effort); the policies that
+    #: preempt act on it
+    ttft_slo: float | None = None
+    #: higher admits first under best_fit and is never preempted for a
+    #: lower one
+    priority: int = 0
 
 
 @dataclasses.dataclass
@@ -75,22 +112,49 @@ class Result:
     decode_s: float
     latency_s: float = 0.0      # submit -> finish
     ttft_s: float = 0.0         # submit -> first token
+    #: engine dispatches (decode + chunk batches) before the first token
+    ttft_steps: int = 0
+    preemptions: int = 0        # times the request was evicted
     status: str = "ok"
 
 
 @dataclasses.dataclass
-class _Slot:
-    """Host-side state of one in-flight request."""
+class _Pending:
+    """A request's lifecycle record: the queue entry, then (held by its
+    ``_Slot``) the state kept across preemptions, re-queued as it is."""
 
     req: Request
+    t_submit: float
+    #: prompt plus the tokens produced before a preemption: what an
+    #: admission prefills (the resident part skips via the prefix cache)
+    #: and what prefix registration content-addresses
+    full_prompt: np.ndarray = None  # type: ignore[assignment]
+    resume_tokens: list[int] = dataclasses.field(default_factory=list)
+    t_first: float = 0.0            # kept across preemptions
+    ttft_steps: int = -1            # -1: no token yet
+    preemptions: int = 0
+    prefill_s: float = 0.0          # prefill time of earlier admissions
+
+    def __post_init__(self):
+        if self.full_prompt is None:
+            self.full_prompt = np.asarray(self.req.prompt, np.int32)
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side state of one admission of a request (``ent``)."""
+
+    ent: _Pending
     produced: list[int]
     cur_tok: int
-    t_submit: float
     t_admit: float
     t_prefill_done: float = 0.0
-    t_first: float = 0.0
     phase: str = "prefill"      # "prefill" while chunks remain, then "decode"
     chunks: list[np.ndarray] = dataclasses.field(default_factory=list)
+
+    @property
+    def req(self) -> Request:
+        return self.ent.req
 
 
 class ContinuousEngine:
@@ -98,13 +162,21 @@ class ContinuousEngine:
 
     ``params`` must live on ``device`` (CUDA unless the caller names
     another; without a card and without ``device="cpu"`` construction
-    raises).  ``audit=True`` checks the pool invariants after every
+    raises).  ``seed`` seeds the sampler's generator; ``policy`` names a
+    registered policy or is one; ``spec`` is ``"ngram"`` or a
+    ``DraftProvider``, with ``spec_k`` drafts a step at most
+    (``spec_degrade`` halves the live depth when the pool denies an
+    extend and wins a step of it back after ``SPEC_RECOVER_STEPS`` clean
+    steps).  ``audit=True`` checks the pool invariants after every
     step."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 8,
-                 max_len: int = 2048, block_size: int = 16,
+                 max_len: int = 2048, seed: int = 0, block_size: int = 16,
                  kv_blocks: int | None = None,
-                 prefill_chunk: int | None = None, audit: bool = False,
+                 prefill_chunk: int | None = None,
+                 policy: str | SchedulerPolicy = "fifo",
+                 spec: str | DraftProvider | None = None, spec_k: int = 4,
+                 spec_degrade: bool = False, audit: bool = False,
                  quant_policy: QuantPolicy | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
@@ -114,17 +186,35 @@ class ContinuousEngine:
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine "
                              f"runs on {self.device}")
+        self.spec: DraftProvider | None = None
+        if spec is not None:
+            if cfg.has_recurrent_state:
+                raise ValueError(
+                    f"{cfg.name} is a hybrid (SSM) arch: the verify step "
+                    f"rolls rejected tokens back by cursor truncation, and "
+                    f"recurrent state cannot be rolled back -- spec= is "
+                    f"attention-only")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            self.spec = make_provider(spec)
+        self.spec_k = spec_k
+        self._spec_k_live = spec_k
+        self._spec_degrade = spec_degrade
+        self._spec_clean_steps = 0
         self.cfg = cfg
         if cfg.quant_serving and cfg.has_recurrent_state:
             raise NotImplementedError(
                 f"{cfg.name}: quantized serving of SSM configs is not "
-                f"ported yet (ROADMAP.md, Queue 1 item 8)")
+                f"ported yet (ROADMAP.md, Queue 1 item 7)")
         if cfg.quant_serving:
             # idempotent: an already-quantized tree passes through
             params = serving_quant_params(cfg, params, quant_policy)
         self.params = params
+        self.policy = (make_policy(policy) if isinstance(policy, str)
+                       else policy)
         self.slots = slots
         self.max_len = max_len
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._audit = audit
         self.metrics = m = MetricsRegistry()
         # scheduled configs share the per-config backend's cache, which the
@@ -163,21 +253,55 @@ class ContinuousEngine:
                                       device=self.device)
         self._slots: list[_Slot | None] = [None] * slots
         self._pos = np.zeros(slots, np.int32)   # mirror of the cursors
-        self._pending: collections.deque[tuple[Request, float]] = (
-            collections.deque())
+        self._pending: collections.deque[_Pending] = collections.deque()
         self._results: collections.deque[Result] = collections.deque()
 
-        self._c_steps = m.counter("engine.steps", "decode steps executed")
+        self._c_steps = m.counter("engine.steps",
+                                  "decode/verify dispatches executed")
         self._c_chunk_steps = m.counter(
             "engine.chunk_steps", "prefill-chunk batches executed")
+        self._c_prefills = m.counter("engine.prefills",
+                                     "prompts fully prefilled")
+        self._c_admissions = m.counter(
+            "engine.admissions", "slot admissions (fresh + resumed)")
+        self._c_resumes = m.counter(
+            "engine.resumes", "re-admissions of preempted requests")
+        self._c_preemptions = m.counter("engine.preemptions",
+                                        "victim evictions")
+        self._c_admit_fail = m.counter(
+            "engine.admit_failures", "admissions the pool denied")
+        # one pool-utilisation sample (used / usable blocks) a step
+        self._c_util_sum = m.counter("engine.pool_util_sum",
+                                     "sum of per-step pool-util samples")
+        self._c_util_samples = m.counter("engine.pool_util_samples",
+                                         "pool-util samples taken")
+        self._g_pool_util = m.gauge("engine.pool_util",
+                                    "pool utilisation at the last step")
+        self._c_spec_emitted = m.counter("spec.tokens_emitted",
+                                         "tokens emitted by verify steps")
+        self._c_spec_drafted = m.counter("spec.drafted",
+                                         "draft tokens proposed")
+        self._c_spec_accepted = m.counter("spec.accepted",
+                                          "draft tokens accepted")
+        self._c_spec_verifies = m.counter("spec.slot_verifies",
+                                          "(slot, verify-step) events")
+        self._c_spec_degrades = m.counter("resilience.spec_degrades",
+                                          "spec_k halvings under pressure")
 
         # pre-resolve the steady-state shapes: decode (M = slots), the
-        # chunk batch (M = slots * chunk) and the gather GEMMs, so the
-        # serving hot path never explores
+        # chunk batch (M = slots * chunk), the gather GEMMs and, under
+        # spec=, the verify family (slots * (k+1) rows, head included),
+        # so the serving hot path never explores
         self._register_gemms(slots, slots)
         self._register_gemms(slots * self.prefill_chunk, slots)
         for M, Nn, K in PA.gather_gemm_shapes(cfg, block_size):
             self.schedule.resolve(M, Nn, K, self._prec)
+        if self.spec is not None:
+            L = self.spec_k + 1
+            self._register_gemms(slots * L, slots * L)
+            self.spec.bind(self)
+
+    # -- counters --------------------------------------------------------------
 
     @property
     def steps(self) -> int:
@@ -186,6 +310,60 @@ class ContinuousEngine:
     @property
     def chunk_steps(self) -> int:
         return int(self._c_chunk_steps.value)
+
+    @property
+    def prefills(self) -> int:
+        return int(self._c_prefills.value)
+
+    @property
+    def admissions(self) -> int:
+        return int(self._c_admissions.value)
+
+    @property
+    def resumes(self) -> int:
+        return int(self._c_resumes.value)
+
+    @property
+    def preemptions(self) -> int:
+        return int(self._c_preemptions.value)
+
+    @property
+    def spec_emitted(self) -> int:
+        return int(self._c_spec_emitted.value)
+
+    @property
+    def spec_drafted(self) -> int:
+        return int(self._c_spec_drafted.value)
+
+    @property
+    def spec_accepted(self) -> int:
+        return int(self._c_spec_accepted.value)
+
+    @property
+    def spec_slot_verifies(self) -> int:
+        return int(self._c_spec_verifies.value)
+
+    def avg_pool_util(self) -> float:
+        """Mean fraction of usable pool blocks in use, one sample a step."""
+        return self._c_util_sum.value / max(self._c_util_samples.value, 1)
+
+    def avg_accept_len(self) -> float:
+        """Mean tokens a slot emits a verify (1.0: nothing accepted)."""
+        return self.spec_emitted / max(self.spec_slot_verifies, 1)
+
+    def spec_stats(self) -> dict[str, Any]:
+        """Speculation counters (zeros without ``spec=``)."""
+        return {
+            "provider": self.spec.name if self.spec else None,
+            "k": self.spec_k if self.spec else 0,
+            "verify_steps": self.steps if self.spec else 0,
+            "tokens_emitted": self.spec_emitted,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+            "avg_accept_len": round(self.avg_accept_len(), 4),
+            "draft_steps": getattr(self.spec, "steps", 0),
+            "draft_chunk_steps": getattr(self.spec, "chunk_steps", 0),
+        }
 
     def _table_tensor(self) -> torch.Tensor:
         return torch.as_tensor(self.pool.tables, device=self.device)
@@ -235,11 +413,12 @@ class ContinuousEngine:
                 f"prompt {len(req.prompt)} exceeds max_len {self.max_len}")
         if len(req.prompt) == 0:
             raise ValueError("empty prompt")
-        if req.temperature > 0:
-            raise ValueError("sampled decoding (temperature > 0) is not "
-                             "ported yet: submit greedy requests "
-                             "(temperature=0)")
-        self._pending.append((req, time.perf_counter()))
+        if self.spec is not None and req.temperature > 0:
+            raise ValueError(
+                "speculative decoding is greedy-only (accept-longest-prefix "
+                "against the target argmax) -- submit temperature=0 "
+                "requests or serve without spec=")
+        self._pending.append(_Pending(req=req, t_submit=time.perf_counter()))
 
     def run(self, requests: Sequence[Request]) -> list[Result]:
         """Serve all requests; results in COMPLETION order."""
@@ -252,12 +431,20 @@ class ContinuousEngine:
                 out.append(self._results.popleft())
         return out
 
+    def drain_results(self) -> list[Result]:
+        """The results finished since the last call."""
+        out = list(self._results)
+        self._results.clear()
+        return out
+
     # -- the engine step -------------------------------------------------------
 
     def step(self) -> int:
-        """Admit, run at most one prefill-chunk batch and one batched decode
+        """Admit what the policy picks, preempt if it names a victim, run
+        at most one prefill-chunk batch and one batched decode (or verify)
         step, then refill.  Returns the number of active slots."""
         self._admit()
+        self._maybe_preempt()
         pre = [i for i, s in enumerate(self._slots)
                if s is not None and s.phase == "prefill"]
         if pre:
@@ -265,40 +452,142 @@ class ContinuousEngine:
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and s.phase == "decode"]
         if active:
-            self._decode_step(active)
+            if self.spec is not None:
+                self._spec_step(active)
+            else:
+                self._decode_step(active)
             self._admit()
         return self._end_step()
 
+    # -- policy views ----------------------------------------------------------
+
+    def _pending_view(self, index: int, ent: _Pending, now: float,
+                      evictable_hint: int | None = None) -> PendingView:
+        remaining = ent.req.max_new_tokens - len(ent.resume_tokens)
+        probe = (self.pool.probe([int(t) for t in ent.full_prompt],
+                                 self._reserve_horizon(remaining),
+                                 evictable_hint=evictable_hint)
+                 if self.policy.needs_probes else None)
+        return PendingView(index=index, rid=ent.req.rid,
+                           prompt_len=len(ent.full_prompt),
+                           new_tokens=remaining, priority=ent.req.priority,
+                           ttft_slo=ent.req.ttft_slo,
+                           waited_s=now - ent.t_submit,
+                           resumed=bool(ent.resume_tokens),
+                           preemptions=ent.preemptions, probe=probe)
+
+    def _pending_views(self) -> tuple[list[PendingView], float]:
+        now = time.perf_counter()
+        hint = (self.pool.evictable_cached() if self.policy.needs_probes
+                else None)
+        return [self._pending_view(i, e, now, hint)
+                for i, e in enumerate(self._pending)], now
+
+    def _slot_view(self, index: int) -> SlotView | None:
+        st = self._slots[index]
+        if st is None:
+            return None
+        return SlotView(index=index, rid=st.req.rid, phase=st.phase,
+                        priority=st.req.priority, produced=len(st.produced),
+                        remaining=st.req.max_new_tokens - len(st.produced),
+                        reclaimable_blocks=self.pool.reclaimable_blocks(
+                            index),
+                        preemptions=st.ent.preemptions,
+                        has_slo=st.req.ttft_slo is not None)
+
+    # -- admission and preemption ----------------------------------------------
+
+    def _reserve_horizon(self, remaining_new: int) -> int:
+        """Decode positions an admission reserves: the whole remaining
+        budget, or one under spec= (each verify extends and truncates the
+        span, so rollback returns real blocks)."""
+        return 1 if self.spec is not None else remaining_new
+
     def _admit(self) -> None:
-        """FIFO admission into free slots; a request the pool cannot host
-        stays at the head of the queue."""
+        """Admit the policy's pick into each free slot; a request the pool
+        cannot host goes back to its place in the queue."""
         while self._pending:
             slot = next((i for i, s in enumerate(self._slots) if s is None),
                         None)
-            if slot is None or not self._admit_one(slot,
-                                                   *self._pending[0]):
+            if slot is None:
                 return
-            self._pending.popleft()
+            views, now = self._pending_views()
+            idx = self.policy.select_admission(views, now)
+            if idx is None:
+                return                      # the policy holds the queue
+            ent = self._pending[idx]
+            del self._pending[idx]
+            if not self._admit_one(slot, ent):
+                self._c_admit_fail.inc()        # retried next step
+                self._pending.insert(idx, ent)
+                return
 
-    def _admit_one(self, slot: int, req: Request, t_submit: float) -> bool:
+    def _admit_one(self, slot: int, ent: _Pending) -> bool:
         """Reserve blocks (a shared prefix is mapped in and its prefill
-        skipped) and queue the rest of the prompt as chunks."""
-        prompt = np.asarray(req.prompt, np.int32)
-        plan = self.pool.admit(slot, [int(t) for t in prompt],
-                               req.max_new_tokens)
+        skipped; for a preempted request the sequence includes its tokens)
+        and queue the rest of the admission prompt as chunks."""
+        req = ent.req
+        remaining = req.max_new_tokens - len(ent.resume_tokens)
+        plan = self.pool.admit(slot, [int(t) for t in ent.full_prompt],
+                               self._reserve_horizon(remaining))
         if plan is None:
             return False
         self._bt = self._table_tensor()
         self.caches = N.reset_slot_state(self.caches, slot,
                                          plan.shared_tokens)
+        if self.spec is not None:
+            self.spec.on_reset_slot(self, slot, plan.shared_tokens)
         self._pos[slot] = plan.shared_tokens
-        rest = prompt[plan.shared_tokens:]
+        rest = np.asarray(ent.full_prompt[plan.shared_tokens:], np.int32)
         L = self.prefill_chunk
         self._slots[slot] = _Slot(
-            req=req, produced=[], cur_tok=-1, t_submit=t_submit,
+            ent=ent, produced=list(ent.resume_tokens), cur_tok=-1,
             t_admit=time.perf_counter(),
             chunks=[rest[j:j + L] for j in range(0, len(rest), L)])
+        self._c_admissions.inc()
+        if ent.resume_tokens:
+            self._c_resumes.inc()
         return True
+
+    def _maybe_preempt(self) -> None:
+        """Ask the policy for a victim (at most one a step), evict it and
+        admit again, so the freed slot and blocks serve the request at
+        risk in this step."""
+        if not self.policy.preempts or not self._pending:
+            return
+        pviews, now = self._pending_views()
+        sviews = [self._slot_view(i) for i in range(self.slots)]
+        victim = self.policy.select_victim(pviews, sviews, now)
+        if victim is None:
+            return
+        self._preempt(victim)
+        self._admit()
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a decoding slot: register its whole sequence (prompt +
+        produced) so its resident KV blocks stay in the prefix cache, drop
+        the slot's refs and re-queue the request, at the tail, with its
+        tokens.  The resumed prompt's last token is the victim's last
+        produced one, whose logits seed the next step where it left off."""
+        st = self._slots[slot]
+        assert st is not None and st.phase == "decode", (slot, st and
+                                                         st.phase)
+        full_seq = ([int(t) for t in st.req.prompt]
+                    + [int(t) for t in st.produced])
+        # only FULL blocks among the resident positions [0, pos) are
+        # registered; the tail is prefilled again on resume
+        self.pool.release_slot(slot, prompt=full_seq)
+        self._bt = self._table_tensor()
+        self._slots[slot] = None
+        self._c_preemptions.inc()
+        ent = st.ent
+        ent.full_prompt = np.asarray(full_seq, np.int32)
+        ent.resume_tokens = list(st.produced)
+        ent.preemptions += 1
+        ent.prefill_s += st.t_prefill_done - st.t_admit
+        self._pending.append(ent)
+
+    # -- dispatches ------------------------------------------------------------
 
     def _apply_cow(self) -> None:
         """Run pending copy-on-write forks on the device pools."""
@@ -307,10 +596,21 @@ class ContinuousEngine:
             src = torch.tensor([c[0] for c in copies], device=self.device)
             dst = torch.tensor([c[1] for c in copies], device=self.device)
             self.caches = N.copy_paged_blocks(self.caches, src, dst)
+            if self.spec is not None:
+                self.spec.on_apply_cow(self, src, dst)
             self._bt = self._table_tensor()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _pick(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
+        """The step's tokens on the device, read back in one sync: argmax
+        when every row is greedy, else ``sampling.sample``."""
+        if (temps > 0).any():
+            tok = sample(logits, self._tensor(temps), self.generator)
+        else:
+            tok = logits.argmax(dim=-1)
+        return tok.cpu().numpy()
 
     def _prefill_chunk_step(self, pre: list[int]) -> None:
         """One chunk for EVERY admitting slot in one call; other rows ride
@@ -318,10 +618,13 @@ class ContinuousEngine:
         L = self.prefill_chunk
         toks = np.zeros((self.slots, L), np.int32)
         lens = np.zeros(self.slots, np.int32)
+        temps = np.zeros(self.slots, np.float32)
         for i in pre:
-            chunk = self._slots[i].chunks[0]
+            st = self._slots[i]
+            chunk = st.chunks[0]
             toks[i, :len(chunk)] = chunk
             lens[i] = len(chunk)
+            temps[i] = st.req.temperature
             self.pool.ensure_writable(i, int(self._pos[i]),
                                       int(self._pos[i]) + L - 1)
         self._apply_cow()
@@ -331,7 +634,10 @@ class ContinuousEngine:
             self.params, self.cfg, self._tensor(toks), self.caches,
             self._slot_ids, self._bt, self._tensor(lens),
             self._tensor(last_idx))
-        tok_np = logits.argmax(dim=-1).cpu().numpy()
+        if self.spec is not None:
+            # the draft prefills the same chunk through the same tables
+            self.spec.on_prefill_chunk(self, toks, lens, last_idx)
+        tok_np = self._pick(logits, temps)
         self._c_chunk_steps.inc()
         now = time.perf_counter()
         for i in pre:
@@ -340,12 +646,18 @@ class ContinuousEngine:
             self._pos[i] += int(lens[i])
             if st.chunks:
                 continue
+            self._c_prefills.inc()
             st.phase = "decode"
-            st.t_prefill_done = st.t_first = now
+            st.t_prefill_done = now
+            ent = st.ent
+            if ent.t_first == 0.0:             # resumed slots keep theirs
+                ent.t_first = now
+            if ent.ttft_steps < 0:
+                ent.ttft_steps = self.steps + self.chunk_steps
             # the prompt's KV is resident: content-address its full blocks
             n = int(self.pool.n_slot_blocks[i])
             self.pool.register_prefix(
-                [int(t) for t in st.req.prompt],
+                [int(t) for t in ent.full_prompt],
                 [int(b) for b in self.pool.tables[i, :n]])
             st.cur_tok = int(tok_np[i])
             st.produced.append(st.cur_tok)
@@ -357,8 +669,10 @@ class ContinuousEngine:
         self._register_gemms(self.slots, self.slots)
         toks = np.zeros((self.slots, 1), np.int32)
         adv = np.zeros(self.slots, np.int32)
+        temps = np.zeros(self.slots, np.float32)
         for i in active:
             toks[i, 0] = self._slots[i].cur_tok
+            temps[i] = self._slots[i].req.temperature
             adv[i] = 1
             self.pool.ensure_writable(i, int(self._pos[i]),
                                       int(self._pos[i]))
@@ -371,11 +685,122 @@ class ContinuousEngine:
                                self.pool.block_size, self._prec)
         self._pos += adv
         self._c_steps.inc()
-        tok_np = logits.argmax(dim=-1).cpu().numpy()
+        tok_np = self._pick(logits, temps)
         for i in active:
             st = self._slots[i]
             st.cur_tok = int(tok_np[i])
             st.produced.append(st.cur_tok)
+            if self._done(i):
+                self._finish(i)
+
+    def _note_spec_pressure(self, pressure: bool) -> None:
+        """Adaptive speculation depth (``spec_degrade``): halve the live
+        depth when the pool denied an extend this step, and win one back
+        after ``SPEC_RECOVER_STEPS`` clean steps.  The tokens do not
+        change (greedy acceptance does not depend on the depth) and the
+        verify shape stays (slots, spec_k + 1)."""
+        if not self._spec_degrade:
+            return
+        if pressure:
+            self._spec_clean_steps = 0
+            if self._spec_k_live > 1:
+                self._spec_k_live = max(1, self._spec_k_live // 2)
+                self._c_spec_degrades.inc()
+        else:
+            self._spec_clean_steps += 1
+            if (self._spec_k_live < self.spec_k and self._spec_clean_steps
+                    >= SPEC_RECOVER_STEPS):
+                self._spec_clean_steps = 0
+                self._spec_k_live += 1
+
+    def _spec_step(self, active: list[int]) -> None:
+        """One draft/verify round over the decoding slots: extend each
+        table one span ahead (preempting a slot that cannot host even
+        k = 0), fork what the span writes, propose, ONE verify call, accept
+        the longest draft prefix matching the target's argmax, then roll
+        the rest back (cursors, draft caches, pool blocks)."""
+        L = self.spec_k + 1
+        ks: dict[int, int] = {}
+        run: list[int] = []
+        grew = pressure = False
+        for i in active:
+            st = self._slots[i]
+            remaining = st.req.max_new_tokens - len(st.produced)
+            headroom = self.max_len - int(self._pos[i]) - 1
+            k_i = max(0, min(self._spec_k_live, remaining - 1, headroom))
+            nblk = int(self.pool.n_slot_blocks[i])
+            while not self.pool.extend(i, int(self._pos[i]) + k_i + 1):
+                pressure = True
+                if k_i == 0:
+                    k_i = -1
+                    break
+                k_i = 0
+            if k_i < 0:
+                self._preempt(i)
+                continue
+            grew |= int(self.pool.n_slot_blocks[i]) != nblk
+            ks[i] = k_i
+            run.append(i)
+        self._note_spec_pressure(pressure)
+        if not run:
+            return
+        # tables are shared with the draft: its speculative writes must
+        # land in forked blocks too
+        for i in run:
+            self.pool.ensure_writable(i, int(self._pos[i]),
+                                      int(self._pos[i]) + ks[i])
+        self._apply_cow()
+        if grew:
+            self._bt = self._table_tensor()
+        drafts = self.spec.propose(self, run, ks)
+        toks = np.zeros((self.slots, L), np.int32)
+        lens = np.zeros(self.slots, np.int32)
+        for i in run:
+            d = [int(t) for t in drafts.get(i, [])][:ks[i]]
+            drafts[i] = d
+            toks[i, 0] = self._slots[i].cur_tok
+            toks[i, 1:1 + len(d)] = d
+            lens[i] = len(d) + 1
+        self._register_gemms(self.slots * L, self.slots * L)
+        logits, self.caches = N.verify_paged_chunk(
+            self.params, self.cfg, self._tensor(toks), self.caches,
+            self._slot_ids, self._bt, self._tensor(lens))
+        tok_np = logits.argmax(dim=-1).cpu().numpy()
+        self._c_steps.inc()
+        rejected = False
+        for i in run:
+            st = self._slots[i]
+            d = drafts[i]
+            emit: list[int] = []
+            j = 0
+            while True:
+                # tok[j] is valid while inputs 0..j were right: input 0 is
+                # cur_tok, input j+1 is draft j, checked before advancing
+                t = int(tok_np[i, j])
+                emit.append(t)
+                if (t == st.req.eos or len(st.produced) + len(emit)
+                        >= st.req.max_new_tokens):
+                    break
+                if j < len(d) and d[j] == t:
+                    j += 1
+                    continue
+                break
+            st.produced.extend(emit)
+            st.cur_tok = emit[-1]
+            self._pos[i] += len(emit)
+            rejected |= len(emit) < int(lens[i])
+            self._c_spec_emitted.inc(len(emit))
+            self._c_spec_drafted.inc(len(d))
+            self._c_spec_accepted.inc(len(emit) - 1)
+            self._c_spec_verifies.inc()
+        # rollback: cursors back to the accepted lengths (already there
+        # when everything was accepted), rejected tail blocks to the pool
+        if rejected:
+            self.caches = N.set_slot_pos(self.caches,
+                                         self._tensor(self._pos))
+            self.spec.on_rollback(self, self._pos)
+        for i in run:
+            self.pool.truncate(i, int(self._pos[i]))
             if self._done(i):
                 self._finish(i)
 
@@ -387,24 +812,33 @@ class ContinuousEngine:
 
     def _finish(self, slot: int) -> None:
         st = self._slots[slot]
+        ent = st.ent
         now = time.perf_counter()
         self._results.append(Result(
-            rid=st.req.rid, tokens=np.asarray(st.produced, np.int32),
-            prefill_s=st.t_prefill_done - st.t_admit,
+            rid=ent.req.rid, tokens=np.asarray(st.produced, np.int32),
+            prefill_s=ent.prefill_s + (st.t_prefill_done - st.t_admit),
             decode_s=now - st.t_prefill_done,
-            latency_s=now - st.t_submit, ttft_s=st.t_first - st.t_submit))
+            latency_s=now - ent.t_submit, ttft_s=ent.t_first - ent.t_submit,
+            ttft_steps=max(ent.ttft_steps, 0), preemptions=ent.preemptions))
         self._slots[slot] = None
-        # full prompt blocks stay content-addressed in the prefix cache
-        self.pool.release_slot(slot, prompt=[int(t) for t in st.req.prompt])
+        # the admission prompt's full blocks stay in the prefix cache
+        self.pool.release_slot(slot,
+                               prompt=[int(t) for t in ent.full_prompt])
         self._bt = self._table_tensor()
 
     def _end_step(self) -> int:
+        util = self.pool.used_blocks / (self.pool.num_blocks - 1)
+        self._c_util_sum.inc(util)
+        self._c_util_samples.inc()
+        self._g_pool_util.set(util)
         if self._audit:
             self.pool.check(pending_op={
-                "op": "end_step",
+                "op": "end_step", "spec": self.spec is not None,
                 "slots": [None if s is None else
                           {"rid": s.req.rid, "phase": s.phase,
-                           "pos": int(self._pos[i])}
+                           "pos": int(self._pos[i]),
+                           "produced": len(s.produced),
+                           "pool_blocks": int(self.pool.n_slot_blocks[i])}
                           for i, s in enumerate(self._slots)]})
         return sum(s is not None for s in self._slots)
 

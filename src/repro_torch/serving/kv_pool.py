@@ -1,8 +1,7 @@
 """Block-paged KV pool: allocator, block tables, prefix sharing, COW.
 
 Host-side bookkeeping (numpy only) of the paged KV cache -- a copy of
-``repro.serving.kv_pool`` without the parts of later slices (lazy growth
-and rollback for speculation, policy probes).  Device
+``repro.serving.kv_pool`` (``from_snapshot`` is a later slice).  Device
 storage keeps every attention layer's K/V as one pool tensor
 ``(num_blocks, block_size, n_kv_heads, head_dim)``; a slot's logical
 sequence is scattered across pool blocks named by its row of
@@ -29,6 +28,15 @@ Invariants:
   * **Eviction**: when a reservation cannot be met, least-recently-used
     cached blocks nobody else maps are evicted; if that still falls short
     the reservation returns None and the engine backs off.
+  * **Lazy growth and rollback** (speculative decoding): ``extend`` grows
+    a slot's table on demand; ``truncate`` drops the table past the
+    accepted tokens, freeing exclusively-owned tail blocks, unpinning
+    shared ones and scrubbing pending copies into them.  Entries past a
+    slot's ``n_slot_blocks`` are always the null block.
+  * **Probes** (scheduling policies): ``probe`` answers whether an
+    admission would fit now without changing anything; ``evictable_cached``
+    and ``reclaimable_blocks`` count what eviction and a release would
+    return.
   * **Quantized blocks** (``quantized=True``, for ``cfg.quant_kv``): the
     device blocks are int8 with per-position scale sidecars, and
     ``scale_written[b]`` records which blocks own live dequant state.
@@ -85,6 +93,25 @@ class AdmitPlan:
     shared_tokens: int          # prefix length already resident
     shared_blocks: tuple[int, ...]
     new_blocks: tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeReport:
+    """Whether an admission would fit right now (:meth:`KVPool.probe`):
+    ``shared`` blocks come from the prefix cache, ``need_new`` must be
+    allocated from the free list or from the cached blocks ``reserve``
+    may evict (those the match itself would pin excluded).  A True
+    ``fits_now`` means an ``admit`` straight after it succeeds."""
+
+    total: int                  # blocks the reservation spans
+    shared: int                 # covered by cached prefix blocks
+    need_new: int               # fresh blocks to allocate
+    free: int                   # free-list size at probe time
+    evictable: int              # cached blocks reserve() could evict
+
+    @property
+    def fits_now(self) -> bool:
+        return self.need_new <= self.free + self.evictable
 
 
 class KVPool:
@@ -266,6 +293,48 @@ class KVPool:
             self._hash_of[bid] = h
             self.ref[bid] += 1
 
+    # -- probes and reclaim accounting ---------------------------------------
+
+    def evictable_cached(self) -> int:
+        """Cached prefix blocks ``reserve`` could evict now (the map's pin
+        is their only ref).  O(cached blocks): a caller probing a whole
+        queue computes it once and passes it to :meth:`probe`."""
+        return sum(1 for bid in self._hash_of if self.ref[bid] == 1)
+
+    def probe(self, prompt: Sequence[int], max_new_tokens: int,
+              evictable_hint: int | None = None) -> ProbeReport:
+        """Would ``admit(prompt, max_new_tokens)`` succeed now?  Changes
+        nothing: no ref taken, no LRU touch, no backoff counted."""
+        plen = len(prompt)
+        total = min(blocks_for(plen + max_new_tokens, self.block_size),
+                    self.blocks_per_slot)
+        matched: list[int] = []
+        if self.share_prefixes and plen > 0:
+            nfull = (plen - 1) // self.block_size
+            for h in self._chain_hashes(prompt, self.block_size, nfull):
+                bid = self._prefix.get(h)
+                if bid is None:
+                    break
+                matched.append(bid)
+        matched = matched[:total]
+        # admit() pins the matched blocks before it reserves, so they are
+        # not up for eviction in the reservation being probed
+        if evictable_hint is None:
+            evictable_hint = self.evictable_cached()
+        evictable = evictable_hint - sum(1 for bid in matched
+                                         if self.ref[bid] == 1)
+        return ProbeReport(total=total, shared=len(matched),
+                           need_new=total - len(matched),
+                           free=len(self._free), evictable=evictable)
+
+    def reclaimable_blocks(self, slot: int) -> int:
+        """Blocks that return to the free list outright if the slot is
+        released: its exclusively-owned entries (ref == 1).  Blocks
+        another slot or the prefix cache holds stay with them."""
+        n = int(self.n_slot_blocks[slot])
+        return sum(1 for b in self.tables[slot, :n]
+                   if self.ref[int(b)] == 1)
+
     # -- admission / release -------------------------------------------------
 
     def admit(self, slot: int, prompt: Sequence[int],
@@ -298,6 +367,42 @@ class KVPool:
                          shared_tokens=len(shared) * self.block_size,
                          shared_blocks=tuple(shared),
                          new_blocks=tuple(fresh))
+
+    def extend(self, slot: int, total_tokens: int) -> bool:
+        """Grow the slot's table to cover ``total_tokens`` positions
+        (evicting cached prefix blocks under pressure).  False, and a
+        counted backoff, when the pool cannot."""
+        need = min(blocks_for(total_tokens, self.block_size),
+                   self.blocks_per_slot)
+        cur = int(self.n_slot_blocks[slot])
+        if need <= cur:
+            return True
+        fresh = self.reserve(need - cur)
+        if fresh is None:
+            return False
+        self.tables[slot, cur:need] = fresh
+        self.n_slot_blocks[slot] = need
+        self._mark_written(fresh)
+        self._note_usage()
+        return True
+
+    def truncate(self, slot: int, n_keep: int) -> int:
+        """KV rollback: keep the first ``blocks_for(n_keep)`` blocks of the
+        slot and release the rest, as :meth:`release_slot` releases
+        (exclusive blocks freed, shared ones unpinned, pending copies into
+        them scrubbed).  Returns the number of entries dropped."""
+        keep = min(blocks_for(max(0, int(n_keep)), self.block_size),
+                   self.blocks_per_slot)
+        cur = int(self.n_slot_blocks[slot])
+        if keep >= cur:
+            return 0
+        dropped = [int(b) for b in self.tables[slot, keep:cur]]
+        self._scrub_pending(set(dropped))
+        for bid in dropped:
+            self._release_one(bid)
+        self.tables[slot, keep:cur] = NULL_BLOCK
+        self.n_slot_blocks[slot] = keep
+        return cur - keep
 
     def release_slot(self, slot: int, *, prompt: Sequence[int] | None
                      = None) -> None:
@@ -399,9 +504,26 @@ class KVPool:
     def audit_violations(self) -> list[str]:
         """Every broken invariant (empty when consistent): ref
         conservation, the free list holding exactly the ref == 0 blocks
-        once each, pending copies between live blocks, and (quantized
-        pools) scale flags on exactly the live blocks."""
+        once each, pending copies between live blocks into a block a slot
+        maps, table rows null past their length (``extend``/``truncate``),
+        and (quantized pools) scale flags on exactly the live blocks."""
         out: list[str] = []
+        mapped: set[int] = set()
+        for s in range(self.slots):
+            n = int(self.n_slot_blocks[s])
+            if not 0 <= n <= self.blocks_per_slot:
+                out.append(f"slot {s} maps {n} blocks, outside [0, "
+                           f"{self.blocks_per_slot}]")
+                continue
+            mapped.update(int(b) for b in self.tables[s, :n])
+            tail = [int(b) for b in self.tables[s, n:] if b != NULL_BLOCK]
+            if tail:
+                out.append(f"slot {s}: stale table entries {tail} past its "
+                           f"{n} mapped blocks")
+        for _src, dst in self.pending_copies:
+            if int(dst) not in mapped:
+                out.append(f"pending COW copy into block {int(dst)}, which "
+                           f"no slot maps (a scrub was missed)")
         counts = np.zeros(self.num_blocks, np.int64)
         counts[NULL_BLOCK] += 1
         for s in range(self.slots):

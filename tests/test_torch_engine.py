@@ -98,9 +98,13 @@ def test_engine_rejects_what_is_not_ported(reference_run):
     tp = bridge.from_jax_params(params, tcfg, "cpu")
     eng = ContinuousEngine(tcfg, tp, slots=SLOTS, max_len=MAX_LEN,
                            device="cpu")
-    with pytest.raises(ValueError, match="temperature"):
-        eng.submit(Request(0, np.arange(3, 9, dtype=np.int32),
-                           temperature=0.7))
+    # speculative decoding of a recurrent config: the reference refuses it
+    # too (its state cannot be rolled back)
+    from repro_torch import configs as TC
+    mcfg = TC.get("mamba2_2_7b").scaled_down()
+    with pytest.raises(ValueError, match="hybrid"):
+        ContinuousEngine(mcfg, TN.init(mcfg, device="cpu"), slots=SLOTS,
+                         max_len=MAX_LEN, spec="ngram", device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(Request(1, np.ones(MAX_LEN + 1, np.int32)))
 

@@ -415,6 +415,29 @@ def test_limb_matmul_int8_at_max_k(cuda):
     assert hi.eq(0).all() and lo.eq(-2 ** 31).all()
 
 
+def test_limb_matmul_int32_at_max_k(cuda):
+    """int32 at K = 2^17, every value -135274560 (digits -64, -64, -64,
+    -64, 0): plane 3 sums 4 x 4096 a k, 2^31 over the whole K, one past
+    int32.  1024 x 1024 fills the card without a split, so the plan takes
+    two cluster ranks to stay exact; every output equals the mod-2^64
+    oracle of one row (all rows are alike) and the plain version."""
+    K, v = TLG.MAX_K, -135274560
+    assert TLG.limb_plan(1024, 1024, K, 5, 5, 4, 4).ranks >= 2
+    a = torch.full((1024, K), v, dtype=torch.int32, device=cuda)
+    b = torch.full((K, 1024), v, dtype=torch.int32, device=cuda)
+    before = TLG.launches.count
+    hi, lo = TOPS.limb_matmul(a, b)
+    torch.cuda.synchronize()
+    assert TLG.launches.count - before == 1
+    row = np.full((1, K), v, np.int32)
+    whi, wlo = int_matmul_mod64_ref(row, row.T)
+    assert ((int(whi[0, 0]) << 32) | (int(wlo[0, 0]) & 0xFFFFFFFF)
+            == 436875690109829120)
+    assert hi.eq(int(whi[0, 0])).all() and lo.eq(int(wlo[0, 0])).all()
+    phi, plo = TLG.limb_matmul_fused_ref(a[:2], b[:, :3], 5, 5)
+    assert torch.equal(hi[:2, :3], phi) and torch.equal(lo[:2, :3], plo)
+
+
 def _raw(gen, dtype, shape, lo=None, hi=None):
     info = torch.iinfo(dtype)
     lo = info.min if lo is None else lo
