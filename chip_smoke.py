@@ -195,6 +195,30 @@ backend with the pool audit after every step:
   vanilla; the device time of a verify step beside a decode step's.
   Phase 7 times K2 at the verify head too.
 
+The families served since qwen1.5 add, after spec_path:
+
+  families_path: qwen1.5-4b, chatglm3-6b, gemma2-9b, llava-next-
+  mistral-7b (its text path) and zamba2-7b at their published widths
+  (random weights from ``--seed``, bf16), one at a time, on the
+  scheduled backend with the pool audit after every step: 4 of phase
+  5's request shapes with 16 new tokens, 8 slots, max_len 1024,
+  ``prefill_chunk`` 256; gemma2 adds a 4200-token prompt past its 4096
+  window (max_len 4352, chunk 1024); qwen1.5 runs again int8 (K3 on
+  every projection and the untied head, K1-int8).  Every request ok;
+  K1 (or K1-int8) launched exactly once an attention layer a decode
+  step (40, 28, 42, 32 and 13), K5 68 times a zamba2 chunk step and
+  never in decode, K2 (or K3) exactly once a GEMM a step, every launch
+  on the Hopper route; one chunk and one decode step of gemma2 and
+  zamba2 profiled as in phase 8.  Then one phase an arch,
+  ``<arch>_scaled_down_fp32``: the scaled-down fp32 model (gemma2 and
+  llava at window 16) under both backends, greedy tokens identical and
+  at least 4 distinct a request.  K1 at gemma2's heads (hd 256, G 2,
+  window, softcap), K2 at each family's GEMMs, K3 at qwen1.5's int8
+  shapes and K5 at zamba2's (H 112, N 64) join phases 3, 4, 4b and 4d;
+  phase 7 times K1 at gemma2's heads (512 and 4200 tokens) and K5 at
+  zamba2's call.  The end of the run prints these phases' seconds
+  beside the others'.
+
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
 the CUDA-core route; the int8 main path does the same for K3
@@ -279,12 +303,15 @@ def main(argv=None) -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))     # _family_scales (no jax)
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
+    from _family_scales import ARCHS as FAMILIES
+    from _family_scales import FAMILY_SCALES, WINDOW, WINDOWED, family_config
     from repro_torch import configs as CONFIGS
     from repro_torch.core import workloads as WL
     from repro_torch.core.dataflow import Dataflow
@@ -308,6 +335,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.timing import (bound_ms, card_line, host_us,
                                            kernel_ms, time_ms, top_ops)
     from repro_torch.models import network as N
+    from repro_torch.models.config import BlockKind
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
@@ -321,6 +349,12 @@ def main(argv=None) -> int:
     rep = sm.report
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    #: seconds of the families' cases inside the earlier phases (K1, K2,
+    #: K3 and K5 checks, timing rows), by phase
+    added_s: dict = {}
+
+    def added(phase, t0):
+        added_s[phase] = added_s.get(phase, 0.0) + time.perf_counter() - t0
 
     # -- 1. device ---------------------------------------------------------
     def p_device():
@@ -398,6 +432,14 @@ def main(argv=None) -> int:
                            None),
         "qwen2_B8_nbs6": (8, 2, 7, 64, 16, 6,
                           [0, 1, 26, 27, 50, 64, 95, 96], None, None),
+        # families_path: gemma2's heads (hd 256 = MAX_HEAD_DIM, G 2,
+        # window 4096, softcap 50; 272 blocks = max_len 4352, lengths on
+        # both sides of the window) and llava's (hd 128, G 4, a window)
+        "gemma2_hd256_G2": (8, 8, 2, 256, 16, 272,
+                            [0, 1, 4095, 4096, 4097, 4200, 100, 4352], 4096,
+                            50.0),
+        "llava_hd128_G4": (8, 8, 4, 128, 16, 64,
+                           [0, 1, 299, 300, 301, 1024, 700, 9], 300, None),
     }
 
     def check_k1(quant: bool):
@@ -412,6 +454,8 @@ def main(argv=None) -> int:
         out = {}
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             for key, B, KV, G, hd, bs, nbs, lens, window, cap in cases:
+                t0 = time.perf_counter()
+                fam = key in ("gemma2_hd256_G2", "llava_hd128_G4")
                 q, k, v, table, lens_t = decode_inputs(
                     dtype, lens, B=B, KV=KV, G=G, hd=hd, bs=bs, nbs=nbs)
                 kw = dict(scale=0.125, window=window, logit_cap=cap)
@@ -435,6 +479,9 @@ def main(argv=None) -> int:
                       f"split, splits {plan}): max|err| {err:.3e} (tol "
                       f"{tol}), repeat bit-equal {equal} "
                       f"{'ok' if ok else 'MISMATCH'}")
+                if fam:
+                    added("k1_int8_vs_plain" if quant else "k1_vs_plain",
+                          t0)
                 if not ok:
                     raise AssertionError(f"{name} {key}: err {err} > {tol},"
                                          f" non-zero length-0 row or a "
@@ -449,7 +496,19 @@ def main(argv=None) -> int:
                (151936, 896)]
     # mamba2-2.7b's in_proj, out_proj and tied head (N, K)
     m2_nk = [(10576, 2560), (2560, 5120), (50280, 2560)]
-    HEADS = (151936, 50280)
+    # families_path's projections (q, k/v, o, gate/up, down; zamba2's
+    # shared attention and mamba in_proj and out_proj) and heads (N, K)
+    fam_nk = {"qwen1_5_4b": [(2560, 2560), (6912, 2560), (2560, 6912),
+                             (151936, 2560)],
+              "chatglm3_6b": [(4096, 4096), (256, 4096), (13696, 4096),
+                              (4096, 13696), (65024, 4096)],
+              "gemma2_9b": [(4096, 3584), (2048, 3584), (3584, 4096),
+                            (14336, 3584), (3584, 14336), (256000, 3584)],
+              "llava_next_mistral_7b": [(1024, 4096), (14336, 4096),
+                                        (4096, 14336), (32000, 4096)],
+              "zamba2_7b": [(3584, 3584), (14576, 3584), (3584, 7168),
+                            (32000, 3584)]}
+    HEADS = (151936, 50280, 65024, 256000, 32000)
 
     def gemm_inputs(M, N, K, dtype, seed):
         # a ~ N(0, 1/K), b ~ N(0, 1): products of order 1, as after RMSNorm
@@ -485,24 +544,66 @@ def main(argv=None) -> int:
                                                   Dataflow.OS, f))
                   for M, N in ((8, 896), (8, 2560), (512, 2048))
                   for f in (2, 3, 4, 8)]
+        # families_path's GEMMs at decode rows (8 slots) and, but for the
+        # heads (which take 8 rows), chunk rows (8 slots x 256), under
+        # every variant; then each as the engine calls it, through
+        # ops.matmul under a schedule cache (gemma2's chunks of 1024 too:
+        # 8 x 1024 rows), with the dataflow and fold the schedule picked
+        fam_shapes = [(M, N, K) for nk in fam_nk.values() for N, K in nk
+                      for M in (8, 2048) if M == 8 or N not in HEADS]
+        n_fam = len(cases)
+        cases += [(s, torch.bfloat16, v) for s in fam_shapes
+                  for v in variants]
+        cases += [(s, torch.bfloat16, ("scheduled", None, None))
+                  for s in fam_shapes + [(8192, N, K) for N, K in
+                                         fam_nk["gemma2_9b"]
+                                         if N not in HEADS]]
+        sched = ScheduleCache()
         rows, worst = [], {}
-        for (M, N, K), dtype, (name, df, fold) in cases:
+        for i, ((M, N, K), dtype, (name, df, fold)) in enumerate(cases):
+            t0 = time.perf_counter()
             a, b = gemm_inputs(M, N, K, dtype, M + N + K)
             out_dtype = torch.float32 if N in HEADS else dtype
-            bm, bn, bk = OPS.plan_blocks(M, N, K, a.element_size(), df,
-                                         fold)
-            ef = MP.effective_fold(K, bk, fold)
+            if df is None:
+                # the schedule's (dataflow, fold) as ops.matmul applies it;
+                # the applied log holds the fold that executed
+                choice = sched.resolve(M, N, K,
+                                       OPS.precision_for_dtype(dtype))
+                fold = choice.k_fold
+
+                def run():
+                    before = dict(MP.launches_by_route)
+                    out = OPS.matmul(a, b, out_dtype=out_dtype,
+                                     schedule=sched)
+                    ran.append({r: MP.launches_by_route[r] - before[r]
+                                for r in MP.ROUTES})
+                    return out
+                ran = []
+                got = run()
+                df, ef = sched.applied[-1][1].dataflow, \
+                    sched.applied[-1][1].k_fold
+                bm, bn, bk = OPS.plan_blocks(M, N, K, a.element_size(), df,
+                                             fold)
+            else:
+                bm, bn, bk = OPS.plan_blocks(M, N, K, a.element_size(), df,
+                                             fold)
+                ef = MP.effective_fold(K, bk, fold)
+
+                def run():
+                    return MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
+                                     k_fold=ef, out_dtype=out_dtype)
+                ran = None
+                got = run()
             route = MP.mpgemm_route(a, b, bk)
-            got = MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn, bk=bk,
-                            k_fold=ef, out_dtype=out_dtype)
             want = MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
                                    out_dtype=out_dtype)
             same = True
             if dtype == torch.bfloat16:     # a repeat must be bit-equal
-                same = bool(torch.equal(got, MP.mpgemm(
-                    a, b, dataflow=df, bm=bm, bn=bn, bk=bk, k_fold=ef,
-                    out_dtype=out_dtype)))
+                same = bool(torch.equal(got, run()))
             torch.cuda.synchronize()
+            if ran is not None:     # both calls launched once, on ``route``
+                same = same and all(r == {**{x: 0 for x in MP.ROUTES},
+                                          route: 1} for r in ran)
             diff = (got.float() - want.float()).abs()
             scale = 1.0 + want.float().abs()
             tol = 1e-4 if out_dtype == torch.float32 else 1e-2
@@ -514,12 +615,21 @@ def main(argv=None) -> int:
             worst[key] = (max(w, rel), n + 1)
             rows.append({"M": M, "N": N, "K": K, "variant": name,
                          "dtype": str(dtype)[6:], "route": route,
-                         "blocks": [bm, bn, bk], "fold": ef,
-                         "max_abs_err": err, "max_rel_err": rel,
+                         "dataflow": df.name, "blocks": [bm, bn, bk],
+                         "fold": ef, "max_abs_err": err, "max_rel_err": rel,
                          "bit_equal_repeat": same,
                          "ok": rel <= tol and same})
             del a, b, got, want
+            if i >= n_fam:
+                added("k2_vs_plain", t0)
         rep["k2_check"] = rows
+        picked = {}
+        for r in rows[n_fam:]:
+            if r["variant"] == "scheduled":
+                k = f"{r['dataflow']} fold {r['fold']}"
+                picked[k] = picked.get(k, 0) + 1
+        print(f"K2 at the families' shapes through ops.matmul under a "
+              f"schedule cache: (dataflow, fold) that ran {picked}")
         for key, (rel, n) in worst.items():
             print(f"K2 {key}: worst |err|/(1+|ref|) {rel:.3e} over {n} "
                   f"shapes")
@@ -574,8 +684,15 @@ def main(argv=None) -> int:
         cases += [(s_, torch.bfloat16, False, t)
                   for s_ in ((2048, 4864, 896), (300, 1008, 904))
                   for t in QM.QUANT_TILES if t[0] >= 64]
+        # families_path's int8 qwen1.5: q/k/v/o, gate/up and down at decode
+        # and chunk rows, and the untied head's (D, V) payload at 8 rows
+        n_fam = len(cases)
+        cases += [((M, N, K), torch.bfloat16, False, None)
+                  for M in (8, 2048) for N, K in fam_nk["qwen1_5_4b"][:3]]
+        cases.append(((8, 151936, 2560), torch.bfloat16, False, None))
         rows, worst = [], {}
-        for (M, N, K), dtype, unaligned, tile in cases:
+        for i, ((M, N, K), dtype, unaligned, tile) in enumerate(cases):
+            t0 = time.perf_counter()
             x, w8, sc = quant_inputs(M, N, K, dtype, M + N + K)
             if unaligned:
                 x = offset_x(M, K, dtype, M + N + K)
@@ -612,6 +729,8 @@ def main(argv=None) -> int:
                          and same and route == want_route
                          and ran[route] == (2 if got is not again else 1)})
             del x, w8, sc, got, again, want
+            if i >= n_fam:
+                added("k3_vs_plain", t0)
         rep["k3_check"] = rows
         for key, (rel, n_) in worst.items():
             print(f"K3 x {key}: worst |err|/(1+|ref|) {rel:.3e} over "
@@ -862,8 +981,13 @@ def main(argv=None) -> int:
                    ("grouped ragged Q", (2, 1, 100, 8, 2, 24, 40), {}),
                    ("grouped scalar copies", (2, 1, 100, 8, 2, 18, 10), {}),
                    ("grouped strided views", (2, 2, 256, 80, 1, 64, 128),
-                    {"strided": True})]
+                    {"strided": True}),
+                   # zamba2's SSD (families_path): H 112, P 64, N 64
+                   ("grouped zamba2 H=112 N=64 Q=256",
+                    (8, 1, 256, 112, 1, 64, 64), {}),
+                   ("grouped zamba2 Q=32", (8, 1, 32, 112, 1, 64, 64), {})]
         for n, (label, shape, kw) in enumerate(grouped):
+            t0 = time.perf_counter()
             args_ = SSD_T.path_inputs(shape[2], 60 + n, dev, *shape[:2],
                                       *shape[3:], **kw)
             got = SSD.ssd_intra_chunked(*args_)
@@ -885,6 +1009,8 @@ def main(argv=None) -> int:
                   f"{plan.head_block}, grid {plan.grid}: max|err| {err:.3e} "
                   f"(max|y| {rows[-1]['max_abs_y']:.1f}), repeat bit-equal "
                   f"{rows[-1]['bit_equal_repeat']} {'ok' if ok else 'MISMATCH'}")
+            if "zamba2" in label:
+                added("k5_vs_plain", t0)
         # ssd_chunked with K5 inside against the sequential recurrence
         gen = torch.Generator(device=dev).manual_seed(7)
         B, S, H, P, G, N_, Q = 1, 512, 80, 64, 1, 128, 256
@@ -2138,6 +2264,200 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"spec_path checks failed: {bad}")
 
+    # -- 9. the families served since qwen1.5, at full width ---------------
+    FAMILY_CHUNK = 256          # the published SSD chunk; one for all five
+
+    def block_kinds(cfg):
+        return list(cfg.pattern) * cfg.n_groups_scan + list(cfg.tail)
+
+    def k2_per_step(cfg):
+        """mpgemm launches a scheduled step: q, k, v, o, gate, up and down
+        of an attention block, q, k, v and o of a shared one, in_proj and
+        out_proj of a MAMBA2 block, and the head."""
+        per = {BlockKind.MAMBA2: 2, BlockKind.SHARED_ATTN: 4}
+        return 1 + sum(per.get(k, 7) for k in block_kinds(cfg))
+
+    def family_serve(cfg, params, reqs, max_len, chunk):
+        """A warm-up run, then the counted run (pool audit on)."""
+        warm = requests(np.random.default_rng(99), 2, 40, 41, 2, cfg.vocab)
+        ContinuousEngine(cfg, params, slots=8, max_len=max_len,
+                         prefill_chunk=chunk, device=dev).run(warm)
+        torch.cuda.synchronize()
+        eng, res, wall, counts = serve(cfg, params, reqs, 8, max_len,
+                                       audit=True, prefill_chunk=chunk)
+        r = summary(eng, res, wall)
+        r["launches"] = counts
+        r["prompt_lens"] = [len(q.prompt) for q in reqs]
+        return r
+
+    def family_check(arch, cfg, r, n_req, quant=False):
+        """Every request ok with 16 tokens; K1 (K1-int8 when quantized)
+        launched once an attention layer a decode step; K5 68 times a
+        chunk step on zamba2 and never in decode; K2 (or K3) once a GEMM
+        a step, every launch on the Hopper route."""
+        kinds = block_kinds(cfg)
+        n_attn = sum(k is not BlockKind.MAMBA2 for k in kinds)
+        n_ssm = len(kinds) - n_attn
+        c, steps = r["launches"], r["decode_steps"] + r["chunk_steps"]
+        k1 = n_attn * r["decode_steps"]
+        want = {"paged_decode": 0 if quant else k1,
+                "paged_decode_int8": k1 if quant else 0,
+                "ssd_intra": n_ssm * r["chunk_steps"],
+                "mpgemm": 0 if quant else k2_per_step(cfg) * steps,
+                "quant_matmul": k2_per_step(cfg) * steps if quant else 0}
+        got = {k: c[k] for k in want}
+        bad = []
+        if r["ok"] != n_req or r["new_tokens"] != 16 * n_req:
+            bad.append(f"{r['ok']}/{n_req} ok, {r['new_tokens']} tokens")
+        if got != want or not r["decode_steps"] or not r["chunk_steps"]:
+            bad.append(f"launches {got}, expected {want}")
+        if c["mpgemm_by_route"]["cuda_core"] \
+                or c["quant_matmul_by_route"]["cuda_core"]:
+            bad.append(f"a bf16 GEMM took the CUDA-core route: {c}")
+        if not n_ssm and r["schedule_misses"]:
+            bad.append(f"{r['schedule_misses']} schedule-cache misses")
+        if bad:
+            raise AssertionError(f"{arch}{' int8' if quant else ''}: "
+                                 + "; ".join(bad))
+        return {"attn_layers": n_attn, "ssm_layers": n_ssm,
+                "k1_per_decode_step": n_attn, "k5_per_chunk_step": n_ssm,
+                "k2_or_k3_per_step": k2_per_step(cfg)}
+
+    def show_family(name, r, secs):
+        print(f"[{card}] {name} full width, scheduled, bf16: {r['ok']}/"
+              f"{r['requests']} ok, {r['new_tokens']} tokens in "
+              f"{r['wall_s']:.2f} s = {r['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{r['ttft_p50_ms']:.1f} ms, TPOT p50 {r['tpot_p50_ms']:.2f} "
+              f"ms, {r['decode_steps']} decode + {r['chunk_steps']} chunk "
+              f"steps, {secs:.1f} s in all; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }")
+
+    def family_profile(cfg, params):
+        """One chunk step (8 slots x 256 rows) and one decode step under
+        torch.profiler, as step_profile does for mamba2."""
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               prefill_chunk=FAMILY_CHUNK, device=dev)
+        plen = 5 * FAMILY_CHUNK // 2
+        for r in requests(np.random.default_rng(7), 8, plen, plen + 1, 16,
+                          cfg.vocab):
+            eng.submit(r)
+        chunk = measure(eng, 1)
+        eng.step()
+        eng.step()
+        decode = measure(eng, 5)
+        return chunk, decode
+
+    def p_families():
+        t_phase = time.perf_counter()
+        out = {}
+        for arch in FAMILIES:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(CONFIGS.get(arch),
+                                      gemm_backend="scheduled")
+            params = N.init(cfg, args.seed, dev)
+            rng = np.random.default_rng(args.seed)
+            reqs = requests(rng, 4, 64, 513, 16, cfg.vocab)
+            max_len, chunk = 1024, FAMILY_CHUNK
+            if arch == "gemma2_9b":
+                # one prompt past the 4096 window: it bites in the chunks
+                # and in every decode step of this request
+                reqs.append(Request(4, rng.integers(3, cfg.vocab, 4200)
+                                    .astype(np.int32), 16, eos=-1))
+                max_len, chunk = 4352, 1024
+            r = family_serve(cfg, params, reqs, max_len, chunk)
+            r["counts"] = family_check(arch, cfg, r, len(reqs))
+            r["max_len"], r["prefill_chunk"] = max_len, chunk
+            if arch == "gemma2_9b":
+                r["window"] = cfg.local_window
+                r["window_bites"] = max(r["prompt_lens"]) + 16 > \
+                    cfg.local_window
+                if not r["window_bites"]:
+                    raise AssertionError("gemma2: no request past the window")
+            if arch in ("gemma2_9b", "zamba2_7b"):
+                chunk_p, decode_p = family_profile(cfg, params)
+                r["step_profile"] = {"chunk": chunk_p, "decode": decode_p}
+                for kind, pr in (("chunk", chunk_p), ("decode", decode_p)):
+                    show(f"{cfg.name} {kind} step, scheduled", pr)
+                n_attn = r["counts"]["attn_layers"]
+                n_ssm = r["counts"]["ssm_layers"]
+                if (chunk_p["k5_launches"], decode_p["k5_launches"],
+                        decode_p["k1_launches"]) != (n_ssm, 0, n_attn):
+                    raise AssertionError(
+                        f"{arch} profiled steps: K5 {chunk_p['k5_launches']}"
+                        f" a chunk step and {decode_p['k5_launches']} a "
+                        f"decode step, K1 {decode_p['k1_launches']} a "
+                        f"decode step")
+            secs = time.perf_counter() - t0
+            r["seconds"] = secs
+            show_family(cfg.name, r, secs)
+            out[arch] = r
+            if arch == "qwen1_5_4b":
+                # int8 weights (the untied head's (D, V) payload included:
+                # K3) and int8 KV blocks (K1-int8), same requests
+                t0 = time.perf_counter()
+                qcfg = dataclasses.replace(cfg, quant_serving=True)
+                qparams = serving_quant_params(qcfg, params)
+                del params
+                rq = family_serve(qcfg, qparams, reqs, max_len, chunk)
+                rq["counts"] = family_check(arch, qcfg, rq, len(reqs),
+                                            quant=True)
+                secs = time.perf_counter() - t0
+                rq["seconds"] = secs
+                show_family(f"{cfg.name} int8", rq, secs)
+                out[arch + "+int8"] = rq
+                del qparams
+            else:
+                del params
+            torch.cuda.empty_cache()
+        rep["families"] = out
+        rep["families_s"] = time.perf_counter() - t_phase
+
+    def family_small(arch):
+        """The scaled-down fp32 arch under both backends: greedy tokens
+        identical and varied (gemma2 and llava with a window that the
+        prompts exceed), its weights scaled as the CPU parity tests
+        scale them (tests/_family_scales.py)."""
+        def run():
+            base = family_config(CONFIGS, arch)
+            windowed = arch in WINDOWED
+            emb, rest = FAMILY_SCALES[arch]
+            params = tree_map(lambda path, a: a * (
+                emb if path[0] == "embed" else rest),
+                N.init(base, args.seed, dev))
+            rng = np.random.default_rng(args.seed + 1)
+            reqs = requests(rng, 8, 4, 100, 16, base.vocab)
+            toks, counts = {}, {}
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(base, gemm_backend=b)
+                _eng, res, _, counts[b] = serve(cfg, params, reqs, 4, 160,
+                                                audit=True,
+                                                prefill_chunk=32)
+                if not all(r.status == "ok" and len(r.tokens) == 16
+                           for r in res):
+                    raise AssertionError(f"scaled-down {arch} {b}: a "
+                                         f"request failed")
+                toks[b] = [r.tokens.tolist() for r in res]
+            same = toks["xla"] == toks["scheduled"]
+            distinct = [len(set(t)) for t in toks["xla"]]
+            rep[f"{arch}_small"] = {"weights_scale": [emb, rest],
+                                    "identical": same,
+                                    "window": base.local_window
+                                    if windowed else None,
+                                    "distinct_per_request": distinct,
+                                    "launches": counts}
+            print(f"scaled-down fp32 {base.name} (embedding x{emb}, other "
+                  f"weights x{rest}"
+                  f"{f', window {WINDOW}' if windowed else ''}): greedy "
+                  f"tokens identical across backends: {same}; distinct "
+                  f"tokens a request {distinct}")
+            if not same:
+                raise AssertionError(f"scaled-down {arch} tokens differ "
+                                     f"between the xla and scheduled "
+                                     f"backends")
+            if min(distinct) < 4:
+                raise AssertionError(f"degenerate greedy output: {distinct}")
+        return run
+
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
 
@@ -2218,6 +2538,52 @@ def main(argv=None) -> int:
             context_ms=mid["sdpa_ms"],
             context="SDPA over pre-dequantized bf16 KV (the K1 row)",
             split_plan=mid["split_plan"])
+
+        t0 = time.perf_counter()
+        # K1 at gemma2's heads (families_path): B 8, KV 8, G 2, hd 256,
+        # window 4096, softcap 50, a 272-block table (max_len 4352), at 512
+        # tokens and at 4200, where the window drops the first 104; the
+        # bound counts the positions the window keeps.  No PyTorch call
+        # takes the softcap: SDPA without it over the kept, head-expanded
+        # KV is the context
+        B, KV, G, hd, nbs, win = 8, 8, 2, 256, 272, 4096
+        rows = []
+        for T in (512, 4200):
+            q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B,
+                                                 B=B, KV=KV, G=G, hd=hd,
+                                                 nbs=nbs, seed=T)
+            kept = min(T, win)
+            kg, vg = (PA.gather_pool_blocks(x, table)[:, T - kept:T]
+                      .permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                      .contiguous() for x in (k, v))
+            kw = dict(scale=hd ** -0.5, window=win, logit_cap=50.0)
+            nbytes = 2 * 2 * q.numel() + 2 * B * kept * KV * hd * 2 \
+                + 4 * (table.numel() + B)
+            b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * kept * hd,
+                                  "bfloat16")
+            row = {"tokens": T, "kept": kept, "B": B, "KV": KV, "G": G,
+                   "hd": hd, "window": win, "softcap": 50.0,
+                   "split_plan": PA.split_plan(B, KV, nbs, 16),
+                   "ms": time_ms(lambda: PA.paged_decode(
+                       q, k, v, table, lens, **kw), 200, flush),
+                   "plain_ms": time_ms(lambda: PA.gather_fallback(
+                       q, k, v, table, lens, **kw), 20, flush),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "context_ms": time_ms(lambda: sdpa(
+                       q.reshape(B, KV * G, 1, hd), kg, vg,
+                       scale=hd ** -0.5), 200, flush),
+                   "context": "SDPA (no softcap) over the kept, gathered, "
+                              "head-expanded KV"}
+            rows.append(row)
+            print(f"[{card}] K1 gemma2 heads B={B} KV={KV} G={G} hd={hd} "
+                  f"len={T} (window {win} keeps {kept}, split_plan "
+                  f"{row['split_plan']}): kernel {row['ms']*1e3:.1f} us, "
+                  f"plain {row['plain_ms']*1e3:.1f} us, SDPA context "
+                  f"{row['context_ms']*1e3:.1f} us, bound "
+                  f"{b_ms*1e3:.2f} us ({b_by})")
+            del q, k, v, kg, vg
+        timing["paged_decode_hd256"] = rows
+        added("timing", t0)
 
         # K2: every GEMM shape of the path under its scheduled dataflow
         sched = ScheduleCache()
@@ -2397,6 +2763,26 @@ def main(argv=None) -> int:
         timing["ssd_intra"] = dict(rows[2], shape="mamba2 chunk step's call "
                                    "(B 8, nc 1, Q 256, H 80, G 1, P 64, N "
                                    "128) fp32, grouped entry")
+        # K5 at zamba2's chunk call (families_path): B 8, H 112, G 1, P 64,
+        # N 64, Q 256 (the published chunk)
+        t0 = time.perf_counter()
+        zsh = dict(B=8, nc=1, H=112, G=1, P=64, N=64)
+        args_ = SSD_T.path_inputs(256, 7, dev, **zsh)
+        kern = time_ms(lambda: SSD.ssd_intra_chunked(*args_), 50, flush)
+        plain = time_ms(lambda: SSD.ssd_intra_chunked_ref(*args_), 20, flush)
+        b_ms, b_by = SSD_T.k5_bound_ms(8, 256, 112, 1, 64, 64)
+        plan = SSD.ssd_plan(8, 1, 256, 112, 1)
+        timing["ssd_intra_zamba2"] = {
+            "layout": "grouped", "Q": 256, **zsh, "ms": kern,
+            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by, "head_block": plan.head_block,
+            "grid": plan.grid}
+        print(f"[{card}] K5 grouped zamba2 B=8 Q=256 H=112 G=1 P=64 N=64 "
+              f"(head block {plan.head_block}, grid {plan.grid}): kernel "
+              f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, bound "
+              f"{b_ms*1e3:.1f} us ({b_by})")
+        del args_
+        added("timing", t0)
 
         # K6 at the down projection at chunk rows, bf16: WS at the path's
         # tile (bk = 64, 76 planes) and at bk = 128 (38 planes; bk = 32
@@ -2448,59 +2834,63 @@ def main(argv=None) -> int:
                                       "-> fp32 planes")
 
     # -- 8. where one step's time goes --------------------------------------
-    def p_profile():
+    def measure(eng, n_wall):
+        """Wall time a step over ``n_wall`` steps, then one more step
+        under torch.profiler: device time, kernel launches, the
+        heaviest kernels and K5's launches in that step."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        def measure(eng, n_wall):
-            """Wall time a step over ``n_wall`` steps, then one more step
-            under torch.profiler: device time, kernel launches, the
-            heaviest kernels and K5's launches in that step."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_wall):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_wall * 1e3
+        SSD.launches.reset()
+        PA.launches.reset()
+        PA.launches_int8.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_wall):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n_wall * 1e3
-            SSD.launches.reset()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                eng.step()
-                torch.cuda.synchronize()
-            # kernel events only: aten ops carry their kernels' time too
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-            k1 = [e for e in ev if "paged_decode" in e.key]
-            k3 = [e for e in ev if "quant_hopper" in e.key
-                  or "quant_matmul_core" in e.key]
-            k5_ms, k5_kernels = kernel_ms(prof, "ssd_intra")
-            return {"step_ms": wall, "device_ms": dev_ms,
-                    "device_busy_share": dev_ms / wall,
-                    "device_kernels": sum(e.count for e in ev),
-                    "k5_launches": SSD.launches.count,
-                    "k5_ms": k5_ms, "k5_kernels": k5_kernels,
-                    # the aten ops behind the device time (CPU-side names)
-                    "top_ops": top_ops(prof, 10),
-                    # K1 / K1-int8: the split and the combine kernel
-                    "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
-                    "k1_kernels": {e.key[:60]: e.count for e in k1},
-                    "k3_ms": sum(e.self_device_time_total for e in k3) / 1e3,
-                    "k3_kernels": {e.key[:60]: e.count for e in k3},
-                    "top": [(e.key[:60], e.self_device_time_total / 1e3,
-                             e.count) for e in top]}
+        # kernel events only: aten ops carry their kernels' time too
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+        k1 = [e for e in ev if "paged_decode" in e.key]
+        k3 = [e for e in ev if "quant_hopper" in e.key
+              or "quant_matmul_core" in e.key]
+        k5_ms, k5_kernels = kernel_ms(prof, "ssd_intra")
+        return {"step_ms": wall, "device_ms": dev_ms,
+                "device_busy_share": dev_ms / wall,
+                "device_kernels": sum(e.count for e in ev),
+                "k5_launches": SSD.launches.count,
+                "k1_launches": PA.launches.count,
+                "k1_int8_launches": PA.launches_int8.count,
+                "k5_ms": k5_ms, "k5_kernels": k5_kernels,
+                # the aten ops behind the device time (CPU-side names)
+                "top_ops": top_ops(prof, 10),
+                # K1 / K1-int8: the split and the combine kernel
+                "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
+                "k1_kernels": {e.key[:60]: e.count for e in k1},
+                "k3_ms": sum(e.self_device_time_total for e in k3) / 1e3,
+                "k3_kernels": {e.key[:60]: e.count for e in k3},
+                "top": [(e.key[:60], e.self_device_time_total / 1e3,
+                         e.count) for e in top]}
 
-        def show(name, r):
-            print(f"[{card}] full-width {name}: {r['step_ms']:.2f} ms "
-                  f"wall, {r['device_ms']:.2f} ms on the device "
-                  f"({100 * r['device_busy_share']:.0f}% busy), "
-                  f"{r['device_kernels']} kernel launches; K1 kernels "
-                  f"{r['k1_ms']:.3f} ms {r['k1_kernels']}; K3 kernels "
-                  f"{r['k3_ms']:.3f} ms {r['k3_kernels']}; top: "
-                  + "; ".join(f"{k} {t:.2f} ms x{c}"
-                              for k, t, c in r["top"]))
+    def show(name, r):
+        print(f"[{card}] full-width {name}: {r['step_ms']:.2f} ms "
+              f"wall, {r['device_ms']:.2f} ms on the device "
+              f"({100 * r['device_busy_share']:.0f}% busy), "
+              f"{r['device_kernels']} kernel launches; K1 kernels "
+              f"{r['k1_ms']:.3f} ms {r['k1_kernels']}; K3 kernels "
+              f"{r['k3_ms']:.3f} ms {r['k3_kernels']}; top: "
+              + "; ".join(f"{k} {t:.2f} ms x{c}"
+                          for k, t, c in r["top"]))
 
+    def p_profile():
         out = {}
         for b, model in (("xla", full), ("scheduled", full),
                          ("xla", full_quant), ("scheduled", full_quant)):
@@ -2578,8 +2968,11 @@ def main(argv=None) -> int:
               ("mamba2_scaled_down_fp32", p_mamba_small),
               ("limb_path", p_limb_path), ("spill_path", p_spill_path),
               ("sampled_path", p_sampled), ("policy_path", p_policy),
-              ("spec_path", p_spec),
-              ("timing", p_timing), ("step_profile", p_profile))
+              ("spec_path", p_spec), ("families_path", p_families))
+    family_phases = tuple((f"{a}_scaled_down_fp32", family_small(a))
+                          for a in FAMILIES)
+    phases += family_phases + (("timing", p_timing),
+                               ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
         if name != "device" and "build" in sm.failures:
@@ -2588,6 +2981,24 @@ def main(argv=None) -> int:
             sm.phase(name, fn)
     if only is not None:
         sm.failures.append("not every phase ran (--phases)")
+    # the families' phases, and their cases inside the earlier phases,
+    # beside all the rest of this run
+    new = {"families_path"} | {n for n, _ in family_phases}
+    secs = {n: v["seconds"] for n, v in rep["phases"].items()}
+    t_phases = sum(v for n, v in secs.items() if n in new)
+    t_cases = sum(added_s.values())
+    t_new = t_phases + t_cases
+    t_old = sum(v for n, v in secs.items() if n not in new) - t_cases
+    rep["time_split"] = {"families_phases_s": t_phases,
+                         "families_cases_s": added_s,
+                         "families_s": t_new, "other_s": t_old,
+                         "added_share": t_new / max(t_old, 1e-9)}
+    print(f"time split: families_path and the families' scaled-down "
+          f"phases {t_phases:.1f} s, the families' cases in earlier phases "
+          f"{t_cases:.1f} s "
+          f"({', '.join(f'{n} {v:.1f}' for n, v in added_s.items())}); "
+          f"everything else {t_old:.1f} s "
+          f"(+{100 * t_new / max(t_old, 1e-9):.1f}%)")
 
     # launches: each kernel's count in the scheduled run of its main path
     # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3, the

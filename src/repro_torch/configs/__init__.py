@@ -10,11 +10,18 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: list[str] = ["qwen2_0_5b", "mamba2_2_7b"]
+ARCH_IDS: list[str] = ["qwen2_0_5b", "mamba2_2_7b", "qwen1_5_4b",
+                        "chatglm3_6b", "gemma2_9b", "llava_next_mistral_7b",
+                        "zamba2_7b"]
 
 #: accepted aliases (the dashed ids)
 ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b",
-                            "mamba2-2.7b": "mamba2_2_7b"}
+                            "mamba2-2.7b": "mamba2_2_7b",
+                            "qwen1.5-4b": "qwen1_5_4b",
+                            "chatglm3-6b": "chatglm3_6b",
+                            "gemma2-9b": "gemma2_9b",
+                            "llava-next-mistral-7b": "llava_next_mistral_7b",
+                            "zamba2-7b": "zamba2_7b"}
 
 __all__ = ["ALIASES", "ARCH_IDS", "get"]
 

@@ -185,6 +185,17 @@ class GemmBackend:
         """(M, K) @ (K, N) through the scheduled kernel."""
         return matmul(x2, w, out_dtype=out_dtype, schedule=self.schedule)
 
+    def head(self, x2: torch.Tensor, w) -> torch.Tensor:
+        """Logits of a quantized lm_head (``quant.policy.QuantHead``): x2
+        (M, D), already times the head's per-D scale, against the int8
+        (D, V) payload through K3 with its unit scale -> fp32 (M, V)."""
+        qt = w.q.t()
+        if getattr(w, "unit", None) is None or not qt.is_contiguous():
+            raise ValueError("a quantized head is built by "
+                             "quant.policy.head_operand: its (D, V) "
+                             "payload must be contiguous")
+        return quant_matmul(x2, qt, w.unit, schedule=self.schedule)
+
     def dense(self, x: torch.Tensor, w, b: torch.Tensor | None = None
               ) -> torch.Tensor:
         """The scheduled ``layers.dense``: leading dims collapse to one

@@ -10,6 +10,9 @@ pool utilisation, and the speculation counters.
     python -m repro_torch.launch.serve --arch qwen2_0_5b --quant
     python -m repro_torch.launch.serve --arch mamba2_2_7b \
         [--gemm-backend scheduled]
+    python -m repro_torch.launch.serve --arch gemma2_9b \
+        [--gemm-backend scheduled]   # or qwen1_5_4b, chatglm3_6b,
+                                     # llava_next_mistral_7b, zamba2_7b
     python -m repro_torch.launch.serve --arch qwen2_0_5b \
         --policy slo_preempt --ttft-slo 0.05 --arrival-ms 20
     python -m repro_torch.launch.serve --arch qwen2_0_5b \
@@ -17,9 +20,9 @@ pool utilisation, and the speculation counters.
     python -m repro_torch.launch.serve --arch qwen2_0_5b --temperature 0.8
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
-an SSM config (mamba2) raises ``NotImplementedError``: its quantized
-path is not ported yet; ``--spec`` on it is refused, as the reference
-refuses it.  ``--arrival-ms`` submits each request after an exponential
+an SSM config (mamba2, zamba2) raises ``NotImplementedError``: its
+quantized path is not ported yet; ``--spec`` on it is refused, as the
+reference refuses it.  llava serves its text path (no patch prefix).  ``--arrival-ms`` submits each request after an exponential
 gap of that mean (the engine steps meanwhile).
 """
 

@@ -148,8 +148,11 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Cached GQA attention over the paged pool: writes k/v at each row's
     cursor and attends over the row's valid prefix.  ``pos_advance`` (B,)
     overrides the cursor increment (ragged chunks advance by each row's
-    real token count).  Returns (out, new cache with advanced cursors)."""
-    if kind is not BlockKind.ATTN:
+    real token count).  ``kind`` ATTN_LOCAL attends over the last
+    ``cfg.local_window`` positions only (query position minus key position
+    below the window, in the decode kernel and in ``_flash`` alike).
+    Returns (out, new cache with advanced cursors)."""
+    if kind not in (BlockKind.ATTN, BlockKind.ATTN_LOCAL):
         raise NotImplementedError(f"{kind} blocks are not ported yet")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -165,6 +168,7 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, cos, sin, frac)
         k = apply_rope(k, cos, sin, frac)
 
+    window = cfg.local_window if kind is BlockKind.ATTN_LOCAL else None
     scale = hd ** -0.5
     adv = S if pos_advance is None else pos_advance
     kv_valid = cache["pos"] + adv
@@ -183,7 +187,7 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if S == 1:
         out = PA.decode_attention(
             q.reshape(B, KV, G, hd), ck, cv, block_table,
-            kv_valid.to(torch.int32), scale=scale, window=None,
+            kv_valid.to(torch.int32), scale=scale, window=window,
             logit_cap=cfg.attn_logit_softcap, k_scale=cks, v_scale=cvs,
             device=x.device)
         return dense(out.reshape(B, 1, H * hd), p["wo"],
@@ -197,7 +201,7 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         v_att = v_att.to(x.dtype) * PA.gather_pool_blocks(
             cvs, block_table).to(x.dtype)[..., None]
     out = _flash(q.reshape(B, S, KV, G, hd), k_att, v_att, scale=scale,
-                 causal=cfg.causal, window=None, q_offset=pos_offset,
+                 causal=cfg.causal, window=window, q_offset=pos_offset,
                  kv_valid=kv_valid, logit_cap=cfg.attn_logit_softcap,
                  block=cfg.attn_block_kv)
     return dense(out.reshape(B, S, H * hd), p["wo"],

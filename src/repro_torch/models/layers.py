@@ -173,12 +173,16 @@ def head_apply(w, x: torch.Tensor, cap: float | None = None,
 
     A QuantTensor head (an untied lm_head under ``serving_quant_params``)
     is quantized along V, so its scale is per-D and folds into x exactly:
-    ``(x * scale) @ q^T``."""
+    ``(x * scale) @ q^T``; ``backend`` runs that product as one int8-weight
+    GEMM on the transposed payload (K3)."""
+    lead, d = x.shape[:-1], x.shape[-1]
     if hasattr(w, "q") and hasattr(w, "scale"):     # QuantTensor head
         x = x * w.scale.to(x.dtype)
+        if backend is not None:
+            logits = backend.head(x.reshape(-1, d), w)
+            return softcap(logits.reshape(*lead, logits.shape[-1]), cap)
         w = w.q
     w = w.to(x.dtype)
-    lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     if backend is not None:
         logits = backend.matmul(x2, w.t(), out_dtype=torch.float32)

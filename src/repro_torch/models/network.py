@@ -1,21 +1,33 @@
 """Network assembly and the paged serving functions (port of the serving
-part of ``repro.models.network``, for plain ATTN patterns and for
-attention-free MAMBA2 patterns).
+part of ``repro.models.network``): decoder stacks of ATTN and ATTN_LOCAL
+blocks (sandwich norms, scaled embeddings and softcaps by config),
+attention-free MAMBA2 stacks, and zamba2's hybrid of MAMBA2 blocks, shared
+attention and a MAMBA2 tail.
 
 Parameters keep the reference's tree: ``{"embed": {"table"}, "final_norm",
-"blocks": (group,)}`` with a leading stacked layer dim on every block
-leaf.  Paged cache trees keep its layout too:
+"blocks": (group,)}`` with a leading stacked group dim on every block
+leaf, and where the config asks for them ``lm_head``, ``vision_proj``,
+``tail_blocks`` (a tuple of unstacked blocks) and ``shared_attn`` (the
+``n_shared_attn_sets`` attention sets, stacked).  Blocks run group by
+group, each group's kinds in pattern order, as the reference's scan does.
+Paged cache trees keep its layout too:
 
-  ``{"groups": ({"k": (L, nb, bs, KV, hd), "v": ..., "pos": (L, slots)},)}``
+  ``{"groups": ({"k": (G, nb, bs, KV, hd), "v": ..., "pos": (G, slots)},
+  ...), "tail": ({"conv": (slots, ...), "ssm": ...},)}``
 
 where k/v are POOL leaves shared by all slots (indexed through the block
 table) and ``pos`` the per-slot write cursors.  Under ``cfg.quant_kv`` k/v
 are int8 and the pool also holds the fp32 scale sidecars ``k_scale`` /
-``v_scale`` (L, nb, bs, KV).  A MAMBA2 group holds per-slot recurrent
-state instead, ``{"conv": (L, slots, K-1, conv_dim), "ssm": (L, slots, H,
-P, N)}`` (slot axis 1), and an attention-free tree carries one top-level
-cursor ``"pos": (slots,)``.  The serving functions update the pool and
-slot-state tensors IN PLACE and return the tree with new cursors.
+``v_scale`` (G, nb, bs, KV).  A MAMBA2 position holds per-slot recurrent
+state instead, ``{"conv": (G, slots, K-1, conv_dim), "ssm": (G, slots, H,
+P, N)}``; leaves under ``"groups"`` carry the group dim first (slot or
+block axis 1), tail leaves none (axis 0).  An attention-free tree carries
+one top-level cursor ``"pos": (slots,)``.  The serving functions update
+the pool and slot-state tensors IN PLACE and return the tree with new
+cursors.
+
+llava's ``vision_proj`` is defined so that weights carry over; the paged
+entry points take tokens only, as the reference's do.
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ from repro_torch.models.layers import (ParamDef, embed_apply, embed_defs,
 PyTree = Any
 
 _POOL_KEYS = ("k", "v", "k_scale", "v_scale")
-#: per-slot recurrent state of MAMBA2 groups (slot axis 1)
+#: per-slot recurrent state of MAMBA2 blocks
 _SLOT_STATE_KEYS = ("conv", "ssm")
 
 
@@ -46,14 +58,11 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.pattern) not in ({BlockKind.ATTN}, {BlockKind.MAMBA2}) \
-            or cfg.tail or cfg.moe is not None or cfg.mla is not None \
-            or cfg.first_layer_dense_ff or cfg.frontend != "none" \
-            or cfg.post_norms or cfg.scale_embeddings:
+    if cfg.moe is not None or cfg.mla is not None \
+            or cfg.first_layer_dense_ff or cfg.frontend == "frames":
         raise NotImplementedError(
-            f"{cfg.name}: only plain ATTN decoder stacks and attention-free "
-            f"MAMBA2 stacks are ported so far (see ROADMAP.md for the "
-            f"other families)")
+            f"{cfg.name}: MoE, MLA, a dense first layer and the frames "
+            f"frontend are not ported yet (see ROADMAP.md)")
 
 
 def _norm_def(d: int) -> ParamDef:
@@ -64,8 +73,17 @@ def _block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
     d = cfg.d_model
     if kind is BlockKind.MAMBA2:
         return {"ln1": _norm_def(d), "mamba": S.mamba2_defs(cfg)}
-    return {"ln1": _norm_def(d), "ln2": _norm_def(d),
-            "attn": A.attn_defs(cfg), "mlp": mlp_defs(d, cfg.d_ff)}
+    if kind is BlockKind.SHARED_ATTN:
+        # the weights live in the shared stack; the block keeps its own
+        # (unused) norm, as the reference's does
+        return {"ln1": _norm_def(d)}
+    defs = {"ln1": _norm_def(d), "ln2": _norm_def(d),
+            "attn": A.attn_defs(cfg)}
+    if cfg.post_norms:
+        defs["post_ln1"] = _norm_def(d)
+        defs["post_ln2"] = _norm_def(d)
+    defs["mlp"] = mlp_defs(d, cfg.d_ff)
+    return defs
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -75,9 +93,18 @@ def param_defs(cfg: ModelConfig) -> dict:
                   "embed": embed_defs(cfg.vocab, d)}
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.vocab, d))
+    if cfg.frontend == "patches":
+        defs["vision_proj"] = {"w": ParamDef((d, d)),
+                               "b": ParamDef((d,), init="zeros")}
     defs["blocks"] = stack_defs(tuple(_block_defs(cfg, k)
                                       for k in cfg.pattern),
                                 cfg.n_groups_scan)
+    if cfg.tail:
+        defs["tail_blocks"] = tuple(_block_defs(cfg, k) for k in cfg.tail)
+    if BlockKind.SHARED_ATTN in cfg.pattern + cfg.tail:
+        defs["shared_attn"] = stack_defs(
+            {"ln1": _norm_def(d), "attn": A.attn_defs(cfg)},
+            cfg.n_shared_attn_sets)
     return defs
 
 
@@ -99,51 +126,99 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda _p, a: a[i], tree)
 
 
+def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
+                 x: torch.Tensor, cache: dict, shared: dict | None, *,
+                 pos_offset: torch.Tensor, block_table: torch.Tensor,
+                 pos_advance: torch.Tensor | None,
+                 seq_lens: torch.Tensor | None, backend
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One block over its cache (per-slot state or pool leaves and cursor
+    of this layer).  Recurrent state is written in place; returns (x, the
+    attention cursor after the call, or None for a MAMBA2 block)."""
+    eps = cfg.norm_eps
+    if kind is BlockKind.MAMBA2:
+        # ``seq_lens`` masks the recurrence of pad positions and of rows
+        # riding along (0): their state comes back unchanged
+        state = {k: cache[k] for k in _SLOT_STATE_KEYS}
+        out, new = S.mamba2_block(p["mamba"], rms_norm(x, p["ln1"], eps),
+                                  cfg, state=state, seq_len=seq_lens,
+                                  backend=backend)
+        for k in _SLOT_STATE_KEYS:
+            state[k].copy_(new[k])
+        return x + out, None
+    attn_kw = dict(pos_offset=pos_offset, cache=cache,
+                   block_table=block_table, pos_advance=pos_advance,
+                   backend=backend)
+    if kind is BlockKind.SHARED_ATTN:
+        out, nc = A.gqa_attention(shared["attn"],
+                                  rms_norm(x, shared["ln1"], eps), cfg,
+                                  kind=BlockKind.ATTN, **attn_kw)
+        return x + out, nc["pos"]
+    out, nc = A.gqa_attention(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
+                              kind=kind, **attn_kw)
+    if cfg.post_norms:
+        out = rms_norm(out, p["post_ln1"], eps)
+    x = x + out
+    out = mlp_apply(p["mlp"], rms_norm(x, p["ln2"], eps), cfg.act,
+                    backend=backend)
+    if cfg.post_norms:
+        out = rms_norm(out, p["post_ln2"], eps)
+    return x + out, nc["pos"]
+
+
+def _block_cache(tree: dict, i: int | None) -> dict:
+    """The cache of one block: layer ``i`` of a group-stacked cache, or a
+    tail block's own (``i`` None)."""
+    return {k: (a if i is None else a[i]) for k, a in tree.items()}
+
+
 def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 pos_offset: torch.Tensor, caches: PyTree,
                 block_table: torch.Tensor,
                 pos_advance: torch.Tensor | None,
                 seq_lens: torch.Tensor | None) -> tuple[torch.Tensor,
                                                         PyTree]:
+    """The pattern groups in order (each group's kinds in pattern order),
+    then the tail blocks; returns (x, the cache tree with new cursors)."""
     backend = gemm_backend(cfg)
-    eps = cfg.norm_eps
-    groups = []
-    for gi, kind in enumerate(cfg.pattern):
-        stacked, gcache = params["blocks"][gi], caches["groups"][gi]
-        if kind is BlockKind.MAMBA2:
-            # ``seq_lens`` masks the recurrence of pad positions and of
-            # rows riding along (0): their state comes back unchanged
-            for li in range(cfg.n_groups_scan):
-                p = _layer(stacked, li)
-                state = {k: gcache[k][li] for k in _SLOT_STATE_KEYS}
-                out, new = S.mamba2_block(p["mamba"],
-                                          rms_norm(x, p["ln1"], eps), cfg,
-                                          state=state, seq_len=seq_lens,
-                                          backend=backend)
-                x = x + out
-                for k in _SLOT_STATE_KEYS:
-                    state[k].copy_(new[k])
-            groups.append(gcache)
-            continue
-        new_pos = []
-        pools = [k for k in _POOL_KEYS if k in gcache]
-        for li in range(cfg.n_groups_scan):
-            p = _layer(stacked, li)
-            cache = {k: gcache[k][li] for k in pools}
-            cache["pos"] = gcache["pos"][li]
-            h = rms_norm(x, p["ln1"], eps)
-            out, nc = A.gqa_attention(p["attn"], h, cfg, kind=BlockKind.ATTN,
-                                      pos_offset=pos_offset, cache=cache,
-                                      block_table=block_table,
-                                      pos_advance=pos_advance,
-                                      backend=backend)
-            x = x + out
-            h = rms_norm(x, p["ln2"], eps)
-            x = x + mlp_apply(p["mlp"], h, cfg.act, backend=backend)
-            new_pos.append(nc["pos"])
-        groups.append({**{k: gcache[k] for k in pools},
-                       "pos": torch.stack(new_pos)})
-    return x, {"groups": tuple(groups)}
+    kw = dict(pos_offset=pos_offset, block_table=block_table,
+              pos_advance=pos_advance, seq_lens=seq_lens, backend=backend)
+    n_pat = len(cfg.pattern)
+    new_pos: list[list[torch.Tensor]] = [[] for _ in range(n_pat)]
+    for gi in range(cfg.n_groups_scan):
+        shared = None
+        if "shared_attn" in params:
+            shared = _layer(params["shared_attn"],
+                            gi % cfg.n_shared_attn_sets)
+        for i, kind in enumerate(cfg.pattern):
+            x, pos = _apply_block(
+                cfg, kind, _layer(params["blocks"][i], gi), x,
+                _block_cache(caches["groups"][i], gi), shared, **kw)
+            if pos is not None:
+                new_pos[i].append(pos)
+    out: dict = {"groups": tuple(
+        {**gcache, "pos": torch.stack(new_pos[i])} if new_pos[i] else gcache
+        for i, gcache in enumerate(caches["groups"]))}
+    if cfg.tail:
+        tail = []
+        for i, kind in enumerate(cfg.tail):
+            tcache = caches["tail"][i]
+            x, pos = _apply_block(cfg, kind, params["tail_blocks"][i], x,
+                                  _block_cache(tcache, None), None, **kw)
+            tail.append(tcache if pos is None else {**tcache, "pos": pos})
+        out["tail"] = tuple(tail)
+    return x, out
+
+
+def _embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    dt = _dtype(cfg.compute_dtype)
+    x = embed_apply(params["embed"], tokens, dt)
+    if cfg.scale_embeddings:
+        # sqrt(d_model) rounded to the compute dtype first, as the
+        # reference does (in bf16, sqrt(3584) does not round to itself)
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=dt))
+    return x
 
 
 def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -152,7 +227,7 @@ def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
            seq_lens: torch.Tensor | None,
            last_index: torch.Tensor | None = None, all_rows: bool = False
            ) -> tuple[torch.Tensor, PyTree]:
-    x = embed_apply(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    x = _embed(params, cfg, tokens)
     x, new_caches = _run_blocks(params, cfg, x, pos_offset=pos_offset,
                                 caches=caches, block_table=block_table,
                                 pos_advance=pos_advance, seq_lens=seq_lens)
@@ -238,24 +313,25 @@ def init_paged_caches(cfg: ModelConfig, slots: int, num_blocks: int,
                       device: str | torch.device | None = None) -> PyTree:
     """Cache tree for block-paged serving: attention leaves become shared
     pools, SSM state stays per slot (it is O(1) per slot: nothing to
-    page).  Callers still ``expand_cache_pos(tree, slots)`` so each slot
-    has its own cursor."""
+    page); each SHARED_ATTN position has its own pool.  Callers still
+    ``expand_cache_pos(tree, slots)`` so each slot has its own cursor."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.compute_dtype)
 
-    def group(kind):
+    def block(kind):
         if kind is BlockKind.MAMBA2:
-            one = S.make_ssm_state(cfg, slots, dtype, dev)
-            return {k: one[k].new_zeros((cfg.n_groups_scan,)
-                                        + tuple(one[k].shape))
-                    for k in one}
-        per_layer = [A.make_paged_kv_cache(cfg, num_blocks, block_size,
-                                           dtype, dev)
-                     for _ in range(cfg.n_groups_scan)]
+            return S.make_ssm_state(cfg, slots, dtype, dev)
+        return A.make_paged_kv_cache(cfg, num_blocks, block_size, dtype,
+                                     dev)
+
+    def group(kind):
+        per_layer = [block(kind) for _ in range(cfg.n_groups_scan)]
         return {k: torch.stack([c[k] for c in per_layer])
                 for k in per_layer[0]}
     caches: dict = {"groups": tuple(group(k) for k in cfg.pattern)}
+    if cfg.tail:
+        caches["tail"] = tuple(block(k) for k in cfg.tail)
     if cfg.attention_free:
         # no layer carries a cursor, but the paged entry points read each
         # row's from the tree (``_first_pos_leaf``): one top-level cursor,
@@ -266,6 +342,12 @@ def init_paged_caches(cfg: ModelConfig, slots: int, num_blocks: int,
 
 def _is_pos(path: tuple) -> bool:
     return "pos" in path
+
+
+def _axis(path: tuple) -> int:
+    """The slot (state) or block (pool) axis of a leaf: 1 under the
+    group-stacked ``"groups"``, 0 in the tail."""
+    return 1 if path and path[0] == "groups" else 0
 
 
 def expand_cache_pos(caches: PyTree, batch: int) -> PyTree:
@@ -289,7 +371,7 @@ def gather_slot_view(caches: PyTree, slot_ids: torch.Tensor) -> PyTree:
         if _is_pos(path):
             return a.index_select(-1, ids)
         if _is_slot_state(path):
-            return a.index_select(1, ids)
+            return a.index_select(_axis(path), ids)
         return a
     return tree_map(fn, caches)
 
@@ -307,7 +389,7 @@ def scatter_slot_view(caches: PyTree, view: PyTree, slot_ids: torch.Tensor
             out[..., ids] = small.to(big.dtype)
             return out
         if _is_slot_state(path):
-            return big.index_copy_(1, ids, small.to(big.dtype))
+            return big.index_copy_(_axis(path), ids, small.to(big.dtype))
         return small
     return tree_map(fn, caches, view)
 
@@ -319,10 +401,21 @@ def set_slot_pos(caches: PyTree, pos: torch.Tensor) -> PyTree:
 
 
 def _first_pos_leaf(view: PyTree) -> torch.Tensor:
-    """The per-row cursor vector of a view (every layer's cursor moves in
-    lockstep; stacked leaves carry (L, B) -- take layer 0; an
-    attention-free tree has only its top-level cursor)."""
-    leaf = view["pos"] if "pos" in view else view["groups"][0]["pos"]
+    """The per-row cursor vector of a view: every cursor moves in
+    lockstep, so the first ``pos`` leaf found is THE cursor (stacked
+    leaves carry (G, B) -- take group 0).  A hybrid tree's first group may
+    be a MAMBA2 position with no cursor; an attention-free tree has only
+    its top-level one."""
+    found: list[torch.Tensor] = []
+
+    def fn(path, a):
+        if _is_pos(path) and not found:
+            found.append(a)
+        return a
+    tree_map(fn, view)
+    if not found:
+        raise ValueError("no pos leaf in cache view")
+    leaf = found[0]
     return (leaf[0] if leaf.dim() == 2 else leaf).to(torch.int32)
 
 
@@ -332,7 +425,7 @@ def reset_slot_state(caches: PyTree, slot: int, pos_value: int) -> PyTree:
     zeroed in place.  Pool leaves are untouched."""
     def fn(path, a):
         if _is_slot_state(path):
-            a[:, slot] = 0
+            a.select(_axis(path), slot).zero_()
             return a
         if not _is_pos(path):
             return a
@@ -350,7 +443,8 @@ def copy_paged_blocks(caches: PyTree, src: torch.Tensor, dst: torch.Tensor
 
     def fn(path, a):
         if path[-1] in _POOL_KEYS:
-            a[:, d] = a[:, s]
+            lead = (slice(None),) * _axis(path)
+            a[lead + (d,)] = a[lead + (s,)]
         return a
     return tree_map(fn, caches)
 

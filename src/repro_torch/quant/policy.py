@@ -103,16 +103,43 @@ class QuantPolicy:
     quantize_head: bool = True
 
 
+@dataclasses.dataclass
+class QuantHead(QuantTensor):
+    """A quantized untied lm_head, built only by ``head_operand``: its
+    (V, D) payload ``q`` is the transposed view of one contiguous (D, V)
+    int8 array, the weight K3 takes, so ``q.t()`` is that array with no
+    copy; ``unit`` is K3's all-ones output scale (the per-D ``scale``
+    folds into x, see ``layers.head_apply``)."""
+
+    unit: torch.Tensor
+
+
+def head_operand(head: QuantTensor) -> QuantHead:
+    """``head`` with its payload stored once, as the contiguous (D, V)
+    array the scheduled head runs through K3
+    (``kernels.ops.GemmBackend.head``)."""
+    if isinstance(head, QuantHead):
+        return head
+    qt = head.q.t().contiguous()
+    return QuantHead(qt.t(), head.scale,
+                     torch.ones(qt.shape[1], dtype=torch.float32,
+                                device=qt.device))
+
+
 def serving_quant_params(cfg, params: PyTree,
                          policy: QuantPolicy | None = None) -> PyTree:
     """Apply ``policy`` to a parameter tree for serving under ``cfg``.
     Idempotent; a tied embedding table is never quantized (it feeds the
-    token lookup, not only the head)."""
+    token lookup, not only the head).  A quantized untied head is stored
+    as K3 takes it (``head_operand``)."""
     policy = policy or QuantPolicy()
     keys = tuple(policy.keys)
     if policy.quantize_head and not cfg.tie_embeddings:
         keys += ("lm_head",)
-    return quantize_params(params, keys=keys, min_size=policy.min_size)
+    out = quantize_params(params, keys=keys, min_size=policy.min_size)
+    if isinstance(out.get("lm_head"), QuantTensor):
+        out["lm_head"] = head_operand(out["lm_head"])
+    return out
 
 
 def quant_fraction(params: PyTree) -> float:

@@ -29,6 +29,7 @@ import torch
 from repro_torch import configs as TC
 from repro_torch.core import tiling
 from repro_torch.core.dataflow import Dataflow
+from repro_torch.core.scheduler import ScheduleCache
 from repro_torch.kernels import limb_gemm as TLG
 from repro_torch.kernels import mpgemm as TMP
 from repro_torch.kernels import ops as TOPS
@@ -123,6 +124,14 @@ SPLIT_CASES = {
     "hd112_G1": (4, 2, 1, 112, 16, 32, (0, 33, 64, 512), 100, None),
     # 36 bf16 = 72-byte rows: not 16-byte aligned, staged by byte copies
     "hd36_bytes": (3, 2, 5, 36, 16, 8, (0, 40, 128), None, None),
+    # gemma2's local layers: hd 256 (MAX_HEAD_DIM), G 2, window 4096 and
+    # softcap 50, lengths on both sides of the window
+    "hd256_G2_gemma2": (8, 8, 2, 256, 16, 272,
+                        (0, 1, 4095, 4096, 4097, 4200, 100, 4352), 4096,
+                        50.0),
+    # llava's (mistral's) sliding window: hd 128, G 4
+    "hd128_G4_window": (8, 8, 4, 128, 16, 64,
+                        (0, 1, 299, 300, 301, 1024, 700, 9), 300, None),
 }
 
 
@@ -637,8 +646,12 @@ def _grouped_ssd_inputs(dev, B, nc, Q, H, G, P, N, seed, fall=None, pad=0,
     ((2, 2, 256, 16, 1, 64, 128), {"strided": True}),
     ((2, 1, 256, 16, 1, 64, 128), {"fall": 300.0}),
     ((2, 1, 256, 16, 1, 64, 128), {"pad": 100}),
+    # zamba2's SSD: H 112, P 64, N 64 at the published chunk and at 32
+    ((8, 1, 256, 112, 1, 64, 64), {}),
+    ((8, 1, 32, 112, 1, 64, 64), {}),
 ], ids=["full-width", "Q32", "G2-ragged-head-block", "ragged-Q",
-        "scalar-copies", "strided-views", "cums-fall-300", "dt0-pad-100"])
+        "scalar-copies", "strided-views", "cums-fall-300", "dt0-pad-100",
+        "zamba2", "zamba2-Q32"])
 def test_ssd_intra_chunked_kernel_matches_plain(cuda, shape, kw):
     """K5's grouped entry against its plain version (2e-4), finite where
     every masked exponent overflows, and two launches bit-equal."""
@@ -787,6 +800,56 @@ def test_mpgemm_hopper_route_matches_plain(cuda, df, b_layout):
             assert got.dtype == out_dtype and rel <= tol, \
                 (M, N, K, bm, bn, str(out_dtype), rel)
             assert torch.equal(got, again), (M, N, K, bm, bn)
+    assert TMP.launches_by_route == {"hopper": n, "cuda_core": 0}
+
+
+#: (M, N, K, b_layout) at decode rows (8 slots) of the families served
+#: since qwen1.5: each one's q, k/v, o, gate/up and down projections (or
+#: zamba2's mamba in_proj and out_proj) and its head; "nk" heads are the
+#: transposed (V, D) table
+FAMILY_SHAPES = {
+    "qwen1_5_4b": [(8, 2560, 2560, "kn"), (8, 6912, 2560, "kn"),
+                   (8, 2560, 6912, "kn"), (8, 151936, 2560, "nk")],
+    "chatglm3_6b": [(8, 4096, 4096, "kn"), (8, 256, 4096, "kn"),
+                    (8, 13696, 4096, "kn"), (8, 4096, 13696, "kn"),
+                    (8, 65024, 4096, "nk")],
+    "gemma2_9b": [(8, 4096, 3584, "kn"), (8, 2048, 3584, "kn"),
+                  (8, 3584, 4096, "kn"), (8, 14336, 3584, "kn"),
+                  (8, 3584, 14336, "kn"), (8, 256000, 3584, "nk")],
+    "llava_next_mistral_7b": [(8, 1024, 4096, "kn"), (8, 14336, 4096, "kn"),
+                              (8, 4096, 14336, "kn"),
+                              (8, 32000, 4096, "nk")],
+    "zamba2_7b": [(8, 3584, 3584, "kn"), (8, 14576, 3584, "kn"),
+                  (8, 3584, 7168, "kn"), (8, 32000, 3584, "nk")],
+}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_SHAPES))
+def test_mpgemm_hopper_family_shapes(cuda, arch):
+    """K2 at each family's decode GEMMs through ``ops.matmul`` under the
+    schedule cache (the engine's call: its dataflow and fold), fp32 and
+    bf16 out, against the plain version (the tolerances of
+    ``test_mpgemm_hopper_route_matches_plain``), every launch on the
+    Hopper route, a repeat bit-equal."""
+    schedule = ScheduleCache()
+    TMP.reset_launches()
+    n = 0
+    for M, N, K, layout in FAMILY_SHAPES[arch]:
+        a, b = _bf16_operands(cuda, M, N, K, M + N + K, layout)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = TOPS.matmul(a, b, out_dtype=out_dtype, schedule=schedule)
+            again = TOPS.matmul(a, b, out_dtype=out_dtype,
+                                schedule=schedule)
+            want = TMP.mpgemm_plain(a, b, bk=128, k_fold=1,
+                                    out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            n += 2
+            tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+            rel = ((got.float() - want.float()).abs()
+                   / (1 + want.float().abs())).max().item()
+            assert got.dtype == out_dtype and rel <= tol, \
+                (M, N, K, str(out_dtype), rel)
+            assert torch.equal(got, again), (M, N, K)
     assert TMP.launches_by_route == {"hopper": n, "cuda_core": 0}
 
 
