@@ -219,6 +219,46 @@ The families served since qwen1.5 add, after spec_path:
   zamba2's call.  The end of the run prints these phases' seconds
   beside the others'.
 
+The dense serving layout adds, after the families' phases:
+
+  dense_path: full-width qwen2-0.5b, bf16, scheduled, through the paged
+  engine, the dense engine (``paged=False``: batch-1 bucketed admissions
+  into dense stripes) and ``WaveEngine`` on phase 5's requests (8 slots,
+  max_len 1024) and on serve_bench's mixed trace (its ``--dry`` run: 8
+  requests, 4 slots, max_len 160, ``launch/traces.py``), each after a warm-up: tok/s, TTFT
+  p50 and TPOT p50 of each; serve_bench's four gates (dense fewer decode
+  steps than the wave -- on the mixed trace: phase 5's requests fit one
+  wave with one budget --, the wave as many tokens as dense, paged
+  tokens the dense ones but for near-ties (``divergences``), paged peak
+  KV below dense); every request ok; K1 never in dense or wave runs and
+  once a layer a paged decode step; K2 once a GEMM a step (169), a
+  prefill counting as a step; dense again int8 (K3 168 a step, K2 on the
+  tied head); mamba2-2.7b and zamba2-7b through the dense engine (4
+  requests, 16 new): K5 64 and 68 times a prefill, never in decode;
+  every launch on the Hopper route;
+
+  patches_path: llava-next at full width, bf16, scheduled: four rows of
+  1152 stub patch embeddings (normal x 0.02) ahead of 256-512 text
+  tokens through ``network.prefill``, 16 greedy dense decode steps, the
+  same text behind zero patches (the first logits must move), then one
+  row of 1152 + 3194 positions (max_len 4608) past the 4096 window: K2
+  225 launches a step and one more (vision_proj) a prefill, all Hopper,
+  K1 never, logits finite;
+
+  dense_scaled_down_fp32: scaled-down fp32 qwen2 (x4), mamba2, zamba2
+  and gemma2 (window 16): the dense engine token-identical across
+  backends, the paged engine equal to it, the wave as many tokens; llava
+  (window 16) with 8 patch positions: prefill and 8 decode steps
+  token-identical across backends.
+
+  K2 at the dense rows (admissions of 16, 512 and 1024 rows, a wave
+  prefill of 4096, the one-row head, mamba2 at 512, vision_proj at
+  (4608, 4096, 4096)) joins phase 4 and K5 at batch 1 with a pad tail
+  in the last chunk phase 4d; phase 7 times K2 and K5 at those shapes
+  and phase 8 profiles a dense decode step beside the paged one, with
+  ``_flash``'s CUDA-event span.  The end of the run prints the time
+  split of each slice: the families since qwen1.5 and this one.
+
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
 the CUDA-core route; the int8 main path does the same for K3
@@ -334,13 +374,15 @@ def main(argv=None) -> int:
     from repro_torch.launch import ssd_tiles as SSD_T
     from repro_torch.launch.timing import (bound_ms, card_line, host_us,
                                            kernel_ms, time_ms, top_ops)
+    from repro_torch.models import attention as ATT
     from repro_torch.models import network as N
     from repro_torch.models.config import BlockKind
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
     from repro_torch.serving import sampling as SAMPLING
-    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.serving.engine import (ContinuousEngine, Request,
+                                            WaveEngine)
     from repro_torch.serving.policy import POLICY_NAMES
     from repro_torch.serving.spec import ModelDraft
 
@@ -349,12 +391,14 @@ def main(argv=None) -> int:
     rep = sm.report
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    #: seconds of the families' cases inside the earlier phases (K1, K2,
-    #: K3 and K5 checks, timing rows), by phase
-    added_s: dict = {}
+    #: seconds of each slice's cases inside the earlier phases (K1, K2,
+    #: K3 and K5 checks, timing rows), by slice and phase: the families
+    #: since qwen1.5 and the dense path
+    added_s: dict = {"families": {}, "dense": {}}
 
-    def added(phase, t0):
-        added_s[phase] = added_s.get(phase, 0.0) + time.perf_counter() - t0
+    def added(phase, t0, slice_="families"):
+        got = added_s[slice_]
+        got[phase] = got.get(phase, 0.0) + time.perf_counter() - t0
 
     # -- 1. device ---------------------------------------------------------
     def p_device():
@@ -558,6 +602,18 @@ def main(argv=None) -> int:
                   for s in fam_shapes + [(8192, N, K) for N, K in
                                          fam_nk["gemma2_9b"]
                                          if N not in HEADS]]
+        # dense_path's new rows, as the engine calls them: qwen2's
+        # projections at dense admissions (batch 1, buckets of 16, 512
+        # and 1024 rows) and a wave prefill (8 x 512), the head over an
+        # admission's one row, mamba2's at a 512 bucket, and llava's
+        # vision_proj over four rows of 1152 patches (patches_path)
+        n_dense = len(cases)
+        cases += [(s, torch.bfloat16, ("scheduled", None, None))
+                  for s in [(M, N, K) for M in (16, 512, 1024, 4096)
+                            for N, K in path_nk if N not in HEADS]
+                  + [(512, N, K) for N, K in m2_nk if N not in HEADS]
+                  + [(1, 151936, 896), (1, 50280, 2560),
+                     (4608, 4096, 4096)]]
         sched = ScheduleCache()
         rows, worst = [], {}
         for i, ((M, N, K), dtype, (name, df, fold)) in enumerate(cases):
@@ -620,11 +676,13 @@ def main(argv=None) -> int:
                          "bit_equal_repeat": same,
                          "ok": rel <= tol and same})
             del a, b, got, want
-            if i >= n_fam:
+            if i >= n_dense:
+                added("k2_vs_plain", t0, "dense")
+            elif i >= n_fam:
                 added("k2_vs_plain", t0)
         rep["k2_check"] = rows
         picked = {}
-        for r in rows[n_fam:]:
+        for r in rows[n_fam:n_dense]:
             if r["variant"] == "scheduled":
                 k = f"{r['dataflow']} fold {r['fold']}"
                 picked[k] = picked.get(k, 0) + 1
@@ -985,11 +1043,27 @@ def main(argv=None) -> int:
                    # zamba2's SSD (families_path): H 112, P 64, N 64
                    ("grouped zamba2 H=112 N=64 Q=256",
                     (8, 1, 256, 112, 1, 64, 64), {}),
-                   ("grouped zamba2 Q=32", (8, 1, 32, 112, 1, 64, 64), {})]
+                   ("grouped zamba2 Q=32", (8, 1, 32, 112, 1, 64, 64), {}),
+                   # dense admissions (dense_path): batch 1, a bucket's
+                   # chunks, the prompt's pad tail (dt = 0) on the last
+                   # rows of the last chunk only
+                   ("dense admission mamba2 bucket 512",
+                    (1, 2, 256, 80, 1, 64, 128), {"tail": 150}),
+                   ("dense admission zamba2 bucket 1024",
+                    (1, 4, 256, 112, 1, 64, 64), {"tail": 40}),
+                   ("dense admission mamba2 bucket 64",
+                    (1, 1, 64, 80, 1, 64, 128), {"tail": 20})]
         for n, (label, shape, kw) in enumerate(grouped):
             t0 = time.perf_counter()
+            tail = kw.get("tail", 0)
             args_ = SSD_T.path_inputs(shape[2], 60 + n, dev, *shape[:2],
-                                      *shape[3:], **kw)
+                                      *shape[3:], **{k: v for k, v in
+                                                     kw.items()
+                                                     if k != "tail"})
+            if tail:
+                x_, dt_, _c, b_, c_ = args_
+                dt_[:, -1, shape[2] - tail:] = 0.0
+                args_ = (x_, dt_, torch.cumsum(-dt_, dim=2), b_, c_)
             got = SSD.ssd_intra_chunked(*args_)
             again = SSD.ssd_intra_chunked(*args_)
             want = SSD.ssd_intra_chunked_ref(*args_)
@@ -1009,7 +1083,9 @@ def main(argv=None) -> int:
                   f"{plan.head_block}, grid {plan.grid}: max|err| {err:.3e} "
                   f"(max|y| {rows[-1]['max_abs_y']:.1f}), repeat bit-equal "
                   f"{rows[-1]['bit_equal_repeat']} {'ok' if ok else 'MISMATCH'}")
-            if "zamba2" in label:
+            if "dense admission" in label:
+                added("k5_vs_plain", t0, "dense")
+            elif "zamba2" in label:
                 added("k5_vs_plain", t0)
         # ssd_chunked with K5 inside against the sequential recurrence
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -1191,13 +1267,36 @@ def main(argv=None) -> int:
                                audit=audit, quant_policy=quant_policy,
                                prefill_chunk=prefill_chunk, device=dev,
                                **engine_kw)
-        eng.schedule.reset()
-        torch.cuda.synchronize()
+        return (eng,) + counted_run(eng, reqs, settle)
+
+    def reset_launches():
         PA.launches.reset()
         PA.launches_int8.reset()
         MP.reset_launches()
         QM.reset_launches()
         SSD.launches.reset()
+
+    def launch_counts():
+        return {"paged_decode": PA.launches.count,
+                "mpgemm": MP.launches.count,
+                "mpgemm_by_dataflow": dict(MP.launches_by_dataflow),
+                "mpgemm_by_route": dict(MP.launches_by_route),
+                "mpgemm_spill": MP.spill_launches.count,
+                "paged_decode_int8": PA.launches_int8.count,
+                "quant_matmul": QM.launches.count,
+                "quant_matmul_by_route": dict(QM.launches_by_route),
+                "ssd_intra": SSD.launches.count}
+
+    def counted_run(eng, reqs, settle=0.0):
+        """(results by rid, wall, launch counts) of one run of ``eng``
+        (a continuous or a wave engine) over ``reqs``; the schedule stats
+        and the counts cover only this run."""
+        schedule = getattr(eng, "schedule", None) or getattr(
+            N.gemm_backend(eng.cfg), "schedule", None)
+        if schedule is not None:
+            schedule.reset()
+        torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
         if settle:
             for r in reqs:
@@ -1211,22 +1310,17 @@ def main(argv=None) -> int:
             res = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"paged_decode": PA.launches.count,
-                  "mpgemm": MP.launches.count,
-                  "mpgemm_by_dataflow": dict(MP.launches_by_dataflow),
-                  "mpgemm_by_route": dict(MP.launches_by_route),
-                  "mpgemm_spill": MP.spill_launches.count,
-                  "paged_decode_int8": PA.launches_int8.count,
-                  "quant_matmul": QM.launches.count,
-                  "quant_matmul_by_route": dict(QM.launches_by_route),
-                  "ssd_intra": SSD.launches.count}
-        return eng, sorted(res, key=lambda r: r.rid), wall, counts
+        return sorted(res, key=lambda r: r.rid), wall, launch_counts()
 
     def summary(eng, res, wall):
         toks = sum(len(r.tokens) for r in res)
         tpot = [r.decode_s / (len(r.tokens) - 1) for r in res
                 if len(r.tokens) > 1]
-        st = eng.schedule.stats()
+        schedule = getattr(eng, "schedule", None) or getattr(
+            N.gemm_backend(eng.cfg), "schedule", None)
+        st = schedule.stats() if schedule is not None else {
+            "hits": None, "misses": None}
+        pool = getattr(eng, "pool", None)
         return {"requests": len(res),
                 "ok": sum(r.status == "ok" for r in res),
                 "new_tokens": toks, "wall_s": wall,
@@ -1235,9 +1329,10 @@ def main(argv=None) -> int:
                     [r.ttft_s for r in res], 50)) * 1e3,
                 "ttft_max_ms": max(r.ttft_s for r in res) * 1e3,
                 "tpot_p50_ms": float(np.percentile(tpot, 50)) * 1e3,
-                "decode_steps": eng.steps, "chunk_steps": eng.chunk_steps,
+                "decode_steps": eng.steps,
+                "chunk_steps": getattr(eng, "chunk_steps", 0),
                 "schedule_hits": st["hits"], "schedule_misses": st["misses"],
-                "pool": eng.pool.stats()}
+                "pool": pool.stats() if pool is not None else None}
 
     full = CONFIGS.get("qwen2_0_5b")
     main_launches: dict = {}
@@ -2458,8 +2553,408 @@ def main(argv=None) -> int:
                 raise AssertionError(f"degenerate greedy output: {distinct}")
         return run
 
+    # -- 10. the dense serving layout: dense stripes, waves, patches --------
+    def engine_row(eng, res, wall, counts):
+        r = summary(eng, res, wall)
+        r["launches"] = counts
+        r["tokens"] = {q.rid: q.tokens.tolist() for q in res}
+        r["prefills"] = getattr(eng, "prefills", None)
+        if hasattr(eng, "kv_bytes"):
+            r["kv_bytes"] = eng.kv_bytes()
+        return r
+
+    def show_engine(name, r):
+        print(f"[{card}] {name}: {r['ok']}/{r['requests']} ok, "
+              f"{r['new_tokens']} tokens in {r['wall_s']:.2f} s = "
+              f"{r['tok_per_s']:.1f} tok/s, TTFT p50 {r['ttft_p50_ms']:.1f} "
+              f"ms, TPOT p50 {r['tpot_p50_ms']:.2f} ms, "
+              f"{r['decode_steps']} decode + {r['chunk_steps']} chunk "
+              f"steps, {r['prefills']} prefills; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }")
+
+    def dense_gates(name, cfg, r, n_req, new, quant=False):
+        """Every request ok with ``new`` tokens; K1 and K1-int8 never; K5
+        once an SSM layer a prefill and never in decode; K2 once a GEMM a
+        step, a prefill counting as a step (under ``quant`` K3 on every
+        projection and K2 on the tied head); every launch on the Hopper
+        route."""
+        n_ssm = sum(k is BlockKind.MAMBA2 for k in block_kinds(cfg))
+        per = k2_per_step(cfg)
+        steps = r["decode_steps"] + r["prefills"]
+        want = {"paged_decode": 0, "paged_decode_int8": 0,
+                "ssd_intra": n_ssm * r["prefills"],
+                "mpgemm": steps if quant else per * steps,
+                "quant_matmul": (per - 1) * steps if quant else 0}
+        c = r["launches"]
+        got = {k: c[k] for k in want}
+        bad = []
+        if r["ok"] != n_req or r["new_tokens"] != new * n_req:
+            bad.append(f"{r['ok']}/{n_req} ok, {r['new_tokens']} tokens")
+        if got != want or not r["decode_steps"]:
+            bad.append(f"launches {got}, expected {want}")
+        if c["mpgemm_by_route"]["cuda_core"] \
+                or c["quant_matmul_by_route"]["cuda_core"]:
+            bad.append(f"a bf16 GEMM took the CUDA-core route: {c}")
+        if bad:
+            raise AssertionError(f"{name}: " + "; ".join(bad))
+        return {"k2_or_k3_per_step": per, "k5_per_prefill": n_ssm}
+
+    def dense_engines(cfg, params, reqs, slots, max_len, audit=False,
+                      prefill_chunk=None):
+        """The paged, the dense and the wave engine over ``reqs``, each
+        after a warm-up run: {engine: engine_row}."""
+        makers = {
+            "paged": lambda: ContinuousEngine(
+                cfg, params, slots=slots, max_len=max_len, audit=audit,
+                prefill_chunk=prefill_chunk, device=dev),
+            "dense": lambda: ContinuousEngine(
+                cfg, params, slots=slots, max_len=max_len, paged=False,
+                device=dev),
+            "wave": lambda: WaveEngine(cfg, params, slots=slots,
+                                       max_len=max_len, device=dev)}
+        out = {}
+        for name, make in makers.items():
+            make().run(requests(np.random.default_rng(99), 2, 40, 41, 2,
+                                cfg.vocab))
+            eng = make()
+            out[name] = engine_row(eng, *counted_run(eng, reqs))
+            if name == "wave":
+                out[name]["prefills"] = -(-len(reqs) // slots)
+        return out
+
+    def token_agreement(a, b):
+        same = sum(x == y for rid, t in a.items() for x, y in zip(t, b[rid]))
+        return same, sum(len(t) for t in a.values())
+
+    def engine_gates(tag, cfg, params, reqs, runs):
+        """serve_bench's four engine gates on ``runs`` (paged, dense,
+        wave): the dense engine fewer decode steps than the wave, as many
+        tokens as it, the paged engine's tokens the dense engine's (at
+        bf16 parted only at near-ties, ``divergences``), and paged peak KV
+        below dense."""
+        same, total = token_agreement(runs["paged"]["tokens"],
+                                      runs["dense"]["tokens"])
+        parted = divergences(cfg, params, [q.prompt for q in reqs],
+                             {"paged": runs["paged"]},
+                             runs["dense"]["tokens"])
+        kv = {k: runs[k]["kv_bytes"]["peak"] for k in ("paged", "dense")}
+        steps = {k: runs[k]["decode_steps"] for k in ("dense", "wave")}
+        gates = {"dense_fewer_decode_steps_than_wave":
+                 steps["dense"] < steps["wave"],
+                 "wave_tokens_equal_dense":
+                 runs["wave"]["new_tokens"] == runs["dense"]["new_tokens"],
+                 "paged_tokens_equal_dense_but_near_ties":
+                 all(d["ok"] for d in parted),
+                 "paged_peak_kv_below_dense": kv["paged"] < kv["dense"]}
+        print(f"{tag}: paged vs dense greedy agreement (bf16) "
+              f"{same}/{total}; decode steps {steps}; peak KV {kv} B; "
+              f"gates {gates}")
+        return {"gates": gates, "agreement_paged_vs_dense": [same, total],
+                "divergences": parted, "decode_steps": steps,
+                "kv_peak_bytes": kv}
+
+    def p_dense():
+        """qwen2-0.5b at full width through the paged, dense and wave
+        engines on phase 5's requests and on serve_bench's mixed trace,
+        dense again int8, then mamba2-2.7b and zamba2-7b through the dense
+        engine."""
+        t_phase = time.perf_counter()
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        params = params_full()
+        rng = np.random.default_rng(args.seed)
+        reqs = requests(rng, 8, 64, 513, 32, full.vocab)   # phase 5's set
+        runs = dense_engines(cfg, params, reqs, 8, 1024)
+        for name, r in runs.items():
+            show_engine(f"qwen2-0.5b full width, scheduled, {name}", r)
+        checks = {k: dense_gates(f"qwen2 {k}", cfg, runs[k], 8, 32)
+                  for k in ("dense", "wave")}
+        main = engine_gates("phase 5's requests", cfg, params, reqs, runs)
+        # one wave and one budget: both take budget - 1 decode steps, so
+        # the first gate needs serve_bench's own trace (more requests than
+        # slots, budgets of 2-31), run at its geometry
+        mreqs = TRACES.mixed_trace(TRACES.MIXED_REQUESTS, TRACES.MIXED_SLOTS,
+                                   full.vocab)
+        mixed_runs = dense_engines(cfg, params, mreqs, TRACES.MIXED_SLOTS,
+                                   TRACES.MIXED_MAX_LEN)
+        for name, r in mixed_runs.items():
+            show_engine(f"qwen2-0.5b full width, serve_bench's mixed trace, "
+                        f"{name}", r)
+        mixed = engine_gates("serve_bench's mixed trace", cfg, params,
+                             mreqs, mixed_runs)
+        gates = {f"{k} ({tag})": v
+                 for tag, g in (("main", main), ("mixed", mixed))
+                 for k, v in g["gates"].items()
+                 if tag == "mixed" or not k.startswith("dense_fewer")}
+        gates["paged_k1_per_decode_step"] = (
+            runs["paged"]["launches"]["paged_decode"]
+            == full.n_layers * runs["paged"]["decode_steps"])
+        # dense again, int8 weights (the KV stripes stay bf16)
+        qcfg = dataclasses.replace(full_quant, gemm_backend="scheduled")
+        ContinuousEngine(qcfg, params_quant(), slots=8, max_len=1024,
+                         paged=False, device=dev).run(
+            requests(np.random.default_rng(99), 2, 40, 41, 2, full.vocab))
+        eng = ContinuousEngine(qcfg, params_quant(), slots=8, max_len=1024,
+                               paged=False, device=dev)
+        rq = engine_row(eng, *counted_run(eng, reqs))
+        show_engine("qwen2-0.5b int8, scheduled, dense", rq)
+        checks["dense int8"] = dense_gates("qwen2 dense int8", qcfg, rq, 8,
+                                           32, quant=True)
+        runs["dense int8"] = rq
+        # the SSM configs through the dense engine: 4 requests, 16 new
+        for arch in ("mamba2_2_7b", "zamba2_7b"):
+            acfg = dataclasses.replace(CONFIGS.get(arch),
+                                       gemm_backend="scheduled")
+            ap = params_m2() if arch == "mamba2_2_7b" else N.init(
+                acfg, args.seed, dev)
+            areqs = requests(np.random.default_rng(args.seed), 4, 64, 513,
+                             16, acfg.vocab)
+            ContinuousEngine(acfg, ap, slots=8, max_len=1024, paged=False,
+                             device=dev).run(requests(
+                                 np.random.default_rng(99), 2, 40, 41, 2,
+                                 acfg.vocab))
+            eng = ContinuousEngine(acfg, ap, slots=8, max_len=1024,
+                                   paged=False, device=dev)
+            ra = engine_row(eng, *counted_run(eng, areqs))
+            show_engine(f"{acfg.name} full width, scheduled, dense", ra)
+            checks[f"{arch} dense"] = dense_gates(f"{arch} dense", acfg, ra,
+                                                  4, 16)
+            runs[f"{arch} dense"] = ra
+            del ap, eng
+            torch.cuda.empty_cache()
+        rep["dense_path"] = {"runs": runs, "mixed_runs": mixed_runs,
+                             "main": main, "mixed": mixed, "gates": gates,
+                             "counts": checks,
+                             "seconds": time.perf_counter() - t_phase}
+        if not all(gates.values()):
+            raise AssertionError(f"dense_path gates failed: {gates}")
+
+    def p_patches():
+        """llava-next at full width: four rows of 1152 stub patch
+        embeddings ahead of 256-512 text tokens through network.prefill
+        (vision_proj on K2), 16 greedy dense decode steps, the same text
+        behind zero patches, then one row past the 4096 window."""
+        cfg = dataclasses.replace(CONFIGS.get("llava_next_mistral_7b"),
+                                  gemm_backend="scheduled")
+        params = N.init(cfg, args.seed, dev)
+        P, D = cfg.frontend_prefix_len, cfg.d_model
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        rng = np.random.default_rng(args.seed)
+        per = k2_per_step(cfg)
+
+        def run(toks, patches, max_len, n_steps):
+            """prefill, then ``n_steps`` greedy decode steps: (first
+            logits, tokens (B, 1 + n_steps), prefill ms, decode ms a step,
+            prefill launches, decode launches, all logits finite)."""
+            B, T = toks.shape
+            caches = N.init_caches(cfg, B, max_len, device=dev)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            logits, caches = N.prefill(
+                params, cfg, {"tokens": toks, "patches": patches}, caches)
+            first = logits
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pre = launch_counts()
+            finite = bool(torch.isfinite(logits).all())
+            reset_launches()
+            tok = logits.argmax(-1)
+            out = [tok]
+            t2 = time.perf_counter()
+            for i in range(n_steps):
+                logits, caches = N.decode_step(
+                    params, cfg, tok[:, None].to(torch.int32), caches,
+                    torch.tensor(P + T + i, dtype=torch.int32, device=dev))
+                finite = finite and bool(torch.isfinite(logits).all())
+                tok = logits.argmax(-1)
+                out.append(tok)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            return (first, torch.stack(out, 1), (t1 - t0) * 1e3,
+                    (t3 - t2) * 1e3 / max(n_steps, 1), pre, launch_counts(),
+                    finite)
+
+        T = int(rng.integers(256, 513))
+        toks = torch.from_numpy(rng.integers(3, cfg.vocab, (4, T))
+                                .astype(np.int32)).to(dev)
+        patches = 0.02 * torch.randn(4, P, D, generator=gen, device=dev)
+        run(toks[:, :32], patches, 2048, 1)                    # warm-up
+        first, out, pre_ms, dec_ms, pre, dec, finite = run(
+            toks, patches, 2048, 16)
+        zero, *_ = run(toks, torch.zeros_like(patches), 2048, 0)
+        moved = (first - zero).abs().max().item()
+        T_long = 4096 - P + 250                # 1152 + 3194 = 4346 > 4096
+        toks_l = torch.from_numpy(rng.integers(3, cfg.vocab, (1, T_long))
+                                  .astype(np.int32)).to(dev)
+        _f, out_l, pre_l_ms, dec_l_ms, pre_l, dec_l, finite_l = run(
+            toks_l, 0.02 * torch.randn(1, P, D, generator=gen, device=dev),
+            4608, 16)
+        res = {"rows": 4, "patch_positions": P, "text_tokens": T,
+               "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+               "prefill_launches": pre, "decode_launches": dec,
+               "finite": finite, "max_abs_logit_change_zero_patches": moved,
+               "tokens": out.tolist(),
+               "long_row": {"text_tokens": T_long, "positions": P + T_long,
+                            "window": cfg.local_window,
+                            "window_bites": P + T_long > cfg.local_window,
+                            "prefill_ms": pre_l_ms,
+                            "decode_ms_per_step": dec_l_ms,
+                            "prefill_launches": pre_l,
+                            "decode_launches": dec_l, "finite": finite_l,
+                            "tokens": out_l.tolist()}}
+        rep["patches_path"] = res
+        print(f"[{card}] llava-next full width, scheduled, bf16: 4 rows of "
+              f"{P} patch positions + {T} text tokens, prefill "
+              f"{pre_ms:.1f} ms, {dec_ms:.2f} ms a dense decode step (16 "
+              f"steps); logits finite {finite}; zero patches move the "
+              f"first logits by up to {moved:.4f}; long row {P} + {T_long} "
+              f"= {P + T_long} positions (window {cfg.local_window}): "
+              f"prefill {pre_l_ms:.1f} ms, {dec_l_ms:.2f} ms a step, "
+              f"finite {finite_l}")
+        bad = []
+        for name, c, want in (("prefill", pre, per + 1),
+                              ("long prefill", pre_l, per + 1),
+                              ("decode", dec, per * 16),
+                              ("long decode", dec_l, per * 16)):
+            if c["mpgemm"] != want or c["mpgemm_by_route"]["cuda_core"] \
+                    or c["paged_decode"]:
+                bad.append(f"{name}: K2 {c['mpgemm']} (expected {want}, "
+                           f"vision_proj one of a prefill's), routes "
+                           f"{c['mpgemm_by_route']}, K1 {c['paged_decode']}")
+        if not (finite and finite_l):
+            bad.append("logits not finite")
+        if moved == 0.0:
+            bad.append("the patch prefix does not reach the logits")
+        if not res["long_row"]["window_bites"]:
+            bad.append("the long row stays inside the window")
+        del params
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError("patches_path: " + "; ".join(bad))
+
+    def p_dense_small():
+        """Scaled-down fp32 qwen2 (x4), mamba2, zamba2 and gemma2 (window
+        16): the dense engine token-identical across backends, the paged
+        engine equal to it, the wave serving as many tokens; llava with
+        patches: prefill + decode identical across backends."""
+        out = {}
+        for arch in ("qwen2_0_5b", "mamba2_2_7b", "zamba2_7b", "gemma2_9b"):
+            base = family_config(CONFIGS, arch)
+            emb, rest = ((4.0, 4.0) if arch == "qwen2_0_5b"
+                         else FAMILY_SCALES.get(arch, (1.0, 1.0)))
+            params = tree_map(lambda path, a: a * (
+                emb if path[0] == "embed" else rest),
+                N.init(base, args.seed, dev))
+            # family_small's requests
+            reqs = requests(np.random.default_rng(args.seed + 1), 8, 4, 100,
+                            16, base.vocab)
+            toks = {}
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(base, gemm_backend=b)
+                eng = ContinuousEngine(cfg, params, slots=4, max_len=160,
+                                       paged=False, device=dev)
+                toks[f"dense {b}"] = engine_row(
+                    eng, *counted_run(eng, reqs))["tokens"]
+            cfg = dataclasses.replace(base, gemm_backend="scheduled")
+            _eng, res, _, _ = serve(cfg, params, reqs, 4, 160, audit=True,
+                                    prefill_chunk=32)
+            toks["paged"] = {r.rid: r.tokens.tolist() for r in res}
+            wave = WaveEngine(cfg, params, slots=4, max_len=160, device=dev)
+            toks["wave"] = {r.rid: r.tokens.tolist() for r in wave.run(reqs)}
+            ref = toks["dense scheduled"]
+            r = {"backends_identical": toks["dense xla"] == ref,
+                 "paged_equals_dense": toks["paged"] == ref,
+                 "wave_tokens_equal_dense": sum(map(len, toks["wave"]
+                                                    .values()))
+                 == sum(map(len, ref.values())),
+                 "distinct_per_request": [len(set(t)) for t in ref.values()],
+                 # phase 6's measure: identity means something when the
+                 # requests' tokens are varied, not each request's
+                 "distinct": len({t for seq in ref.values() for t in seq}),
+                 "requests": len(reqs), "weights_scale": [emb, rest]}
+            out[arch] = r
+            print(f"scaled-down fp32 {base.name} (x{emb}/x{rest}): dense "
+                  f"xla == scheduled {r['backends_identical']}, paged == "
+                  f"dense {r['paged_equals_dense']}, wave tokens == dense "
+                  f"{r['wave_tokens_equal_dense']}; {r['distinct']} distinct "
+                  f"tokens over {len(reqs)} requests (a request: "
+                  f"{r['distinct_per_request']})")
+        # llava with 8 stub patch positions and window 16
+        base = family_config(CONFIGS, "llava_next_mistral_7b")
+        params = tree_map(lambda _p, a: a * 4.0, N.init(base, args.seed, dev))
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        P = base.frontend_prefix_len
+        patches = 0.02 * torch.randn(2, P, base.d_model, generator=gen,
+                                     device=dev)
+        text = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            3, base.vocab, (2, 24)).astype(np.int32)).to(dev)
+        lv = {}
+        for b in ("xla", "scheduled"):
+            cfg = dataclasses.replace(base, gemm_backend=b)
+            caches = N.init_caches(cfg, 2, 64, device=dev)
+            logits, caches = N.prefill(
+                params, cfg, {"tokens": text, "patches": patches}, caches)
+            seq = [logits.argmax(-1)]
+            for i in range(8):
+                logits, caches = N.decode_step(
+                    params, cfg, seq[-1][:, None].to(torch.int32), caches,
+                    torch.tensor(P + 24 + i, dtype=torch.int32, device=dev))
+                seq.append(logits.argmax(-1))
+            lv[b] = torch.stack(seq, 1).tolist()
+        out["llava_patches"] = {"identical": lv["xla"] == lv["scheduled"],
+                                "tokens": lv["xla"]}
+        print(f"scaled-down fp32 llava (x4, window 16, {P} patch positions "
+              f"+ 24 tokens, 9 greedy tokens a row): xla == scheduled "
+              f"{lv['xla'] == lv['scheduled']}")
+        rep["dense_small"] = out
+        bad = [a for a, r in out.items() if not all(
+            v for k, v in r.items() if k in (
+                "backends_identical", "paged_equals_dense",
+                "wave_tokens_equal_dense", "identical"))]
+        bad += [a for a, r in out.items()
+                if "distinct" in r and r["distinct"] < 4 * r["requests"]]
+        if bad:
+            raise AssertionError(f"dense_scaled_down_fp32 failed: {bad}")
+
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
+
+    def k2_timing(shapes, sched, flush):
+        """K2 at each bf16 (M, N, K) under its scheduled dataflow, beside
+        its plain version, torch.matmul and its bound (the head's (V, D)
+        table as a transposed view, fp32 out)."""
+        rows = []
+        for M, N_, K_ in shapes:
+            a, b = gemm_inputs(M, N_, K_, torch.bfloat16, 7)
+            out_dtype = torch.float32 if N_ in HEADS else torch.bfloat16
+            choice = sched.resolve(M, N_, K_, "BP16")
+            df = choice.dataflow
+            bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, choice.k_fold)
+            ef = MP.effective_fold(K_, bk, choice.k_fold)
+            iters = 20 if N_ in HEADS or M >= 2048 else 100
+            kern = time_ms(lambda: MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn,
+                                             bk=bk, k_fold=ef,
+                                             out_dtype=out_dtype),
+                           iters, flush)
+            plain = time_ms(lambda: MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
+                                                    out_dtype=out_dtype),
+                            max(5, iters // 4), flush)
+            lib = time_ms(lambda: torch.matmul(a, b), iters, flush)
+            nbytes = 2 * (M * K_ + K_ * N_) \
+                + M * N_ * (4 if out_dtype == torch.float32 else 2)
+            b_ms, b_by = bound_ms(nbytes, 2 * M * N_ * K_, "bfloat16")
+            rows.append({"M": M, "N": N_, "K": K_, "dataflow": df.value,
+                         "k_fold": ef, "blocks": [bm, bn, bk],
+                         "route": MP.mpgemm_route(a, b, bk),
+                         "ms": kern, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            del a, b
+            print(f"K2 bf16 ({M}, {N_}, {K_}) {df.value} f={ef} tile "
+                  f"{bm}x{bn}x{bk} ({rows[-1]['route']}): kernel "
+                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, "
+                  f"torch.matmul {lib*1e3:.1f} us, bound {b_ms*1e3:.2f} us "
+                  f"({b_by})")
+        return rows
 
     def p_timing():
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -2595,45 +3090,25 @@ def main(argv=None) -> int:
         # mamba2's in_proj, out_proj and head at decode (8 slots) and
         # chunk rows (8 x 256)
         shapes += [(M, N_, K_) for M in (8, 2048) for N_, K_ in m2_nk]
-        rows = []
-        for M, N_, K_ in shapes:
-            a, b = gemm_inputs(M, N_, K_, torch.bfloat16, 7)
-            out_dtype = torch.float32 if N_ in HEADS else torch.bfloat16
-            choice = sched.resolve(M, N_, K_, "BP16")
-            df = choice.dataflow
-            bm, bn, bk = OPS.plan_blocks(M, N_, K_, 2, df, choice.k_fold)
-            ef = MP.effective_fold(K_, bk, choice.k_fold)
-            iters = 20 if N_ in HEADS or M == 2048 else 100
-            kern = time_ms(lambda: MP.mpgemm(a, b, dataflow=df, bm=bm, bn=bn,
-                                             bk=bk, k_fold=ef,
-                                             out_dtype=out_dtype),
-                           iters, flush)
-            plain = time_ms(lambda: MP.mpgemm_plain(a, b, bk=bk, k_fold=ef,
-                                                    out_dtype=out_dtype),
-                            max(5, iters // 4), flush)
-            lib = time_ms(lambda: torch.matmul(a, b), iters, flush)
-            nbytes = 2 * (M * K_ + K_ * N_) \
-                + M * N_ * (4 if out_dtype == torch.float32 else 2)
-            b_ms, b_by = bound_ms(nbytes, 2 * M * N_ * K_, "bfloat16")
-            rows.append({"M": M, "N": N_, "K": K_, "dataflow": df.value,
-                         "k_fold": ef, "blocks": [bm, bn, bk],
-                         "route": MP.mpgemm_route(a, b, bk),
-                         "ms": kern, "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": b_ms, "bound_by": b_by})
-            del a, b
-            print(f"K2 bf16 ({M}, {N_}, {K_}) {df.value} f={ef} tile "
-                  f"{bm}x{bn}x{bk} ({rows[-1]['route']}): kernel "
-                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, "
-                  f"torch.matmul {lib*1e3:.1f} us, bound {b_ms*1e3:.2f} us "
-                  f"({b_by})")
+        rows = k2_timing(shapes, sched, flush)
         timing["mpgemm_shapes"] = rows
         head = next(r for r in rows if (r["M"], r["N"]) == (8, 151936))
         timing["mpgemm"] = dict(head, shape="head (8, 151936, 896) bf16 "
                                 "-> fp32", library="torch.matmul (bf16)")
+        t0 = time.perf_counter()
+        # dense_path's new K2 rows: qwen2's gate/up projection at dense
+        # admissions (buckets of 16, 512 and 1024 rows) and a wave prefill
+        # (8 x 512 rows), the head over an admission's one row, and
+        # llava's vision_proj (patches_path)
+        timing["mpgemm_dense_shapes"] = k2_timing(
+            [(M, 4864, 896) for M in (16, 512, 1024, 4096)]
+            + [(1, 151936, 896), (4608, 4096, 4096)], sched, flush)
+        added("timing", t0, "dense")
 
         # K3: every int8 projection shape of the path, bf16 x, with its
         # route and plan (launch/quant_tiles.py), and the host time a call
         rows = QT.measure(QT.SHAPES, dev, flush)
+
         for r in rows:
             print(f"[{card}] " + QT.describe(r))
         floor = QT.floor_ms(dev, flush)
@@ -2783,6 +3258,33 @@ def main(argv=None) -> int:
               f"{b_ms*1e3:.1f} us ({b_by})")
         del args_
         added("timing", t0)
+        # K5 at dense admissions (dense_path): batch 1, the chunks of a
+        # 512 bucket (mamba2) and of a 1024 bucket (zamba2)
+        t0 = time.perf_counter()
+        rows = []
+        for arch, sh in (("mamba2", dict(B=1, nc=2, H=80, G=1, P=64,
+                                         N=128)),
+                         ("zamba2", dict(B=1, nc=4, H=112, G=1, P=64,
+                                         N=64))):
+            args_ = SSD_T.path_inputs(256, 9, dev, **sh)
+            kern = time_ms(lambda: SSD.ssd_intra_chunked(*args_), 50, flush)
+            plain = time_ms(lambda: SSD.ssd_intra_chunked_ref(*args_), 20,
+                            flush)
+            b_ms, b_by = SSD_T.k5_bound_ms(sh["nc"], 256, sh["H"], sh["G"],
+                                           sh["P"], sh["N"])
+            plan = SSD.ssd_plan(sh["B"], sh["nc"], 256, sh["H"], sh["G"])
+            rows.append({"arch": arch, "layout": "grouped", "Q": 256, **sh,
+                         "ms": kern, "plain_ms": plain, "library_ms": None,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "head_block": plan.head_block, "grid": plan.grid})
+            print(f"[{card}] K5 grouped {arch} dense admission B=1 "
+                  f"nc={sh['nc']} Q=256 H={sh['H']} (head block "
+                  f"{plan.head_block}, grid {plan.grid}): kernel "
+                  f"{kern*1e3:.1f} us, plain {plain*1e3:.1f} us, bound "
+                  f"{b_ms*1e3:.1f} us ({b_by})")
+            del args_
+        timing["ssd_intra_dense"] = rows
+        added("timing", t0, "dense")
 
         # K6 at the down projection at chunk rows, bf16: WS at the path's
         # tile (bk = 64, 76 planes) and at bk = 128 (38 planes; bk = 32
@@ -2880,6 +3382,30 @@ def main(argv=None) -> int:
                 "top": [(e.key[:60], e.self_device_time_total / 1e3,
                          e.count) for e in top]}
 
+    def flash_span_ms(eng, n):
+        """Device time a step of ``_flash`` (CUDA events around each call,
+        the module's function wrapped for these steps only), averaged over
+        ``n`` steps, and its calls a step."""
+        orig, spans = ATT._flash, []
+
+        def timed(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            got = orig(*a, **kw)
+            ev[1].record()
+            spans.append(ev)
+            return got
+        ATT._flash = timed
+        try:
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+        finally:
+            ATT._flash = orig
+        return (sum(s.elapsed_time(e) for s, e in spans) / n,
+                len(spans) // n)
+
     def show(name, r):
         print(f"[{card}] full-width {name}: {r['step_ms']:.2f} ms "
               f"wall, {r['device_ms']:.2f} ms on the device "
@@ -2907,6 +3433,32 @@ def main(argv=None) -> int:
                 eng.step()            # every step is a decode step
             out[b] = measure(eng, 5)
             show(f"decode step, {b}", out[b])
+        # the dense engine's decode step beside the paged one: the same
+        # requests, all admitted by the first step (eight batch-1
+        # prefills), then decode steps whose attention is _flash over
+        # each slot's whole 1024-row stripe
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        eng = ContinuousEngine(cfg, params_full(), slots=8, max_len=1024,
+                               paged=False, device=dev)
+        for r in requests(np.random.default_rng(7), 8, 30, 31, 64,
+                          full.vocab):
+            eng.submit(r)
+        for _ in range(3):
+            eng.step()
+        dense = measure(eng, 5)
+        dense["flash_ms"], dense["flash_calls"] = flash_span_ms(eng, 5)
+        dense["flash_share_of_step"] = dense["flash_ms"] / dense["step_ms"]
+        out["dense scheduled"] = dense
+        show("dense decode step, scheduled", dense)
+        print(f"[{card}] dense decode step: _flash {dense['flash_ms']:.3f} "
+              f"ms a step over {dense['flash_calls']} calls (CUDA-event "
+              f"spans), {100 * dense['flash_share_of_step']:.0f}% of the "
+              f"step's {dense['step_ms']:.2f} ms wall; the paged step's K1 "
+              f"{out['scheduled']['k1_ms']:.3f} ms")
+        if dense["k1_launches"] or dense["flash_calls"] != full.n_layers:
+            raise AssertionError(f"dense decode step: K1 "
+                                 f"{dense['k1_launches']}, _flash calls "
+                                 f"{dense['flash_calls']}")
         # one int8 scheduled chunk step: 8 slots x 32 prompt rows (the
         # engine's default prefill_chunk); prompts of 2.5 chunks, step 1
         # timed, step 2 profiled
@@ -2971,8 +3523,10 @@ def main(argv=None) -> int:
               ("spec_path", p_spec), ("families_path", p_families))
     family_phases = tuple((f"{a}_scaled_down_fp32", family_small(a))
                           for a in FAMILIES)
-    phases += family_phases + (("timing", p_timing),
-                               ("step_profile", p_profile))
+    dense_phases = (("dense_path", p_dense), ("patches_path", p_patches),
+                    ("dense_scaled_down_fp32", p_dense_small))
+    phases += family_phases + dense_phases + (("timing", p_timing),
+                                              ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
         if name != "device" and "build" in sm.failures:
@@ -2981,24 +3535,29 @@ def main(argv=None) -> int:
             sm.phase(name, fn)
     if only is not None:
         sm.failures.append("not every phase ran (--phases)")
-    # the families' phases, and their cases inside the earlier phases,
-    # beside all the rest of this run
-    new = {"families_path"} | {n for n, _ in family_phases}
+    # each slice's phases, and its cases inside the earlier phases, beside
+    # all the rest of this run: the families since qwen1.5, then the dense
+    # path (dense_path, patches_path, dense_scaled_down_fp32)
+    slices = {"families": {"families_path"} | {n for n, _ in family_phases},
+              "dense": {n for n, _ in dense_phases}}
     secs = {n: v["seconds"] for n, v in rep["phases"].items()}
-    t_phases = sum(v for n, v in secs.items() if n in new)
-    t_cases = sum(added_s.values())
-    t_new = t_phases + t_cases
-    t_old = sum(v for n, v in secs.items() if n not in new) - t_cases
-    rep["time_split"] = {"families_phases_s": t_phases,
-                         "families_cases_s": added_s,
-                         "families_s": t_new, "other_s": t_old,
-                         "added_share": t_new / max(t_old, 1e-9)}
-    print(f"time split: families_path and the families' scaled-down "
-          f"phases {t_phases:.1f} s, the families' cases in earlier phases "
-          f"{t_cases:.1f} s "
-          f"({', '.join(f'{n} {v:.1f}' for n, v in added_s.items())}); "
-          f"everything else {t_old:.1f} s "
-          f"(+{100 * t_new / max(t_old, 1e-9):.1f}%)")
+    rep["time_split"] = {}
+    for sl, names in slices.items():
+        t_phases = sum(v for n, v in secs.items() if n in names)
+        t_cases = sum(added_s[sl].values())
+        t_new = t_phases + t_cases
+        t_old = sum(secs.values()) - t_new
+        rep["time_split"][sl] = {"phases_s": t_phases,
+                                 "cases_s": added_s[sl], "total_s": t_new,
+                                 "other_s": t_old,
+                                 "added_share": t_new / max(t_old, 1e-9)}
+        ran = ", ".join(f"{n} {secs[n]:.1f}" for n in sorted(names)
+                        if n in secs)
+        cases = ", ".join(f"{n} {v:.1f}" for n, v in added_s[sl].items())
+        print(f"time split, {sl}: its phases ({ran}) {t_phases:.1f} s, its "
+              f"cases in earlier phases {t_cases:.1f} s ({cases}); "
+              f"everything else {t_old:.1f} s "
+              f"(+{100 * t_new / max(t_old, 1e-9):.1f}%)")
 
     # launches: each kernel's count in the scheduled run of its main path
     # -- the fp run for K1 and K2, the int8 run for K1-int8 and K3, the

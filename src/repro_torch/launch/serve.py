@@ -1,8 +1,9 @@
 """Serving driver of the port: random weights from a seed, a batch of
-random requests through the paged continuous-batching engine, and a
-report of throughput, time to first token (TTFT), time per output token
-(TPOT), schedule-cache hits, KV-pool use, the policy's preemptions and
-pool utilisation, and the speculation counters.
+random requests through the paged continuous-batching engine (or, with
+``--engine``, the dense one or the wave baseline), and a report of
+throughput, time to first token (TTFT), time per output token (TPOT),
+request latency, schedule-cache hits, KV-pool use, the policy's
+preemptions and pool utilisation, and the speculation counters.
 
     python -m repro_torch.launch.serve --arch qwen2_0_5b
     python -m repro_torch.launch.serve --arch qwen2_0_5b --scaled-down \\
@@ -18,12 +19,21 @@ pool utilisation, and the speculation counters.
     python -m repro_torch.launch.serve --arch qwen2_0_5b \
         --spec ngram|model:qwen2_0_5b --spec-k 4
     python -m repro_torch.launch.serve --arch qwen2_0_5b --temperature 0.8
+    python -m repro_torch.launch.serve --arch qwen2_0_5b --engine dense|wave
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
 an SSM config (mamba2, zamba2) raises ``NotImplementedError``: its
 quantized path is not ported yet; ``--spec`` on it is refused, as the
-reference refuses it.  llava serves its text path (no patch prefix).  ``--arrival-ms`` submits each request after an exponential
-gap of that mean (the engine steps meanwhile).
+reference refuses it.  llava serves its text path (its patch prefix
+enters through ``network.prefill``).  ``--arrival-ms`` submits each
+request after an exponential gap of that mean (the engine steps
+meanwhile; continuous engines only).  ``--engine continuous`` is the
+paged pool (default), ``dense`` continuous batching over dense stripes,
+``wave`` the seed baseline; ``--spec`` needs the paged engine, and the
+policies that reserve pool blocks are refused on ``dense`` by the
+engine.  Under ``--quant`` the wave takes the weights-only rewrite
+(``quantize_params``) and keeps its fp config, as in the reference; the
+dense engine quantizes its weights but keeps fp KV stripes.
 """
 
 from __future__ import annotations
@@ -38,8 +48,8 @@ import torch
 from repro_torch import configs as CONFIGS
 from repro_torch.device import resolve_device
 from repro_torch.models import network as N
-from repro_torch.quant.policy import QuantPolicy
-from repro_torch.serving.engine import ContinuousEngine, Request
+from repro_torch.quant.policy import QuantPolicy, quantize_params
+from repro_torch.serving.engine import ContinuousEngine, Request, WaveEngine
 from repro_torch.serving.policy import POLICY_NAMES
 from repro_torch.serving.spec import ModelDraft
 
@@ -68,6 +78,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--engine", choices=("continuous", "dense", "wave"),
+                    default="continuous",
+                    help="continuous = paged KV pool (default); dense = "
+                         "continuous batching over dense stripes; wave = "
+                         "seed baseline")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arrival-ms", type=float, default=0.0,
                     help="mean inter-arrival gap; 0 = offered all at once")
@@ -101,7 +116,7 @@ def main(argv=None) -> dict:
     cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend).validate()
     base_cfg = cfg
     quant_policy = None
-    if args.quant:
+    if args.quant and args.engine != "wave":
         cfg = dataclasses.replace(cfg, quant_serving=True,
                                   name=cfg.name + "+int8").validate()
         # scaled-down projections sit below the default 65536-element
@@ -109,6 +124,9 @@ def main(argv=None) -> dict:
         quant_policy = (QuantPolicy(min_size=0) if args.scaled_down
                         else QuantPolicy())
     params = N.init(cfg, args.seed, dev)
+    if args.quant and args.engine == "wave":
+        # the seed baseline predates QuantPolicy: weights-only rewrite
+        params = quantize_params(params)
 
     spec = None
     if args.spec == "ngram":
@@ -130,6 +148,9 @@ def main(argv=None) -> dict:
                          f"'model:<arch>'")
     if spec is not None and args.temperature > 0:
         raise SystemExit("--spec is greedy-only: drop --temperature")
+    if spec is not None and args.engine != "continuous":
+        raise SystemExit("--spec needs the paged engine (KV rollback "
+                         "lives in the block pool)")
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
@@ -141,14 +162,23 @@ def main(argv=None) -> dict:
                     temperature=args.temperature,
                     ttft_slo=args.ttft_slo or None)
             for i in range(args.requests)]
-    eng = ContinuousEngine(cfg, params, slots=args.slots,
-                           max_len=args.max_len, seed=args.seed,
-                           policy=args.policy, spec=spec,
-                           spec_k=args.spec_k, quant_policy=quant_policy,
-                           device=dev)
-    eng.schedule.reset()        # count only the run, not construction
+    if args.engine == "wave":
+        eng = WaveEngine(cfg, params, slots=args.slots,
+                         max_len=args.max_len, seed=args.seed, device=dev)
+    else:
+        eng = ContinuousEngine(cfg, params, slots=args.slots,
+                               max_len=args.max_len, seed=args.seed,
+                               paged=args.engine == "continuous",
+                               policy=args.policy, spec=spec,
+                               spec_k=args.spec_k, quant_policy=quant_policy,
+                               device=dev)
+    schedule = getattr(eng, "schedule", None)   # the wave has none
+    if schedule is not None:
+        schedule.reset()        # count only the run, not construction
     t0 = time.perf_counter()
-    if args.arrival_ms > 0:
+    if args.engine == "wave":
+        results = eng.run(reqs)
+    elif args.arrival_ms > 0:
         results = _run_arrivals(eng, reqs, rng.exponential(
             args.arrival_ms / 1e3, len(reqs)).cumsum())
     else:
@@ -161,35 +191,54 @@ def main(argv=None) -> dict:
     ttft = [r.ttft_s for r in results]
     tpot = [r.decode_s / (len(r.tokens) - 1) for r in results
             if len(r.tokens) > 1]
-    st = eng.schedule.stats()
-    ps = eng.pool.stats()
-    kv = eng.kv_bytes()
-    report = {"device": str(dev), "requests": len(results),
+    lats = [r.latency_s for r in results]
+    report = {"device": str(dev), "engine": args.engine,
+              "requests": len(results),
               "ok": sum(r.status == "ok" for r in results),
               "new_tokens": toks, "wall_s": wall,
               "tok_per_s": toks / max(wall, 1e-9),
               "ttft_p50_ms": _pct(ttft, 50) * 1e3,
               "ttft_p95_ms": _pct(ttft, 95) * 1e3,
               "tpot_p50_ms": _pct(tpot, 50) * 1e3,
-              "schedule_hits": st["hits"], "schedule_misses": st["misses"],
-              "quant": bool(args.quant), "kv_quantized": ps["quantized"],
-              "pool_peak_blocks": ps["peak_used"],
-              "pool_blocks": ps["num_blocks"],
-              "shared_token_hits": ps["shared_token_hits"],
-              "policy": eng.policy.name, "preemptions": eng.preemptions,
-              "resumes": eng.resumes, "avg_pool_util": eng.avg_pool_util(),
-              "ttft_steps_p95": _pct([r.ttft_steps for r in results], 95),
-              "spec": eng.spec_stats()}
+              "latency_p50_ms": _pct(lats, 50) * 1e3,
+              "latency_p99_ms": _pct(lats, 99) * 1e3,
+              "decode_steps": eng.steps, "quant": bool(args.quant)}
     if args.quant:
-        kv_kind = "int8 KV blocks" if cfg.quant_kv else "fp KV blocks"
+        kv_kind = ("int8 KV blocks" if cfg.quant_kv
+                   and args.engine == "continuous" else "fp KV")
         print(f"[serve] int8 serving: QuantTensor weights + {kv_kind}")
+    print(f"[serve:{args.engine}] {len(results)} requests, {toks} tokens "
+          f"in {wall:.2f}s ({report['tok_per_s']:.1f} tok/s)  latency "
+          f"p50={report['latency_p50_ms']:.0f}ms "
+          f"p99={report['latency_p99_ms']:.0f}ms")
     print(f"[serve:{cfg.name} {args.gemm_backend} on {dev}] "
           f"{len(results)} requests, {toks} tokens in {wall:.2f}s "
           f"({report['tok_per_s']:.1f} tok/s)  TTFT p50 "
           f"{report['ttft_p50_ms']:.1f} ms p95 {report['ttft_p95_ms']:.1f} "
           f"ms  TPOT p50 {report['tpot_p50_ms']:.2f} ms")
-    print(f"[serve] schedule cache: {st['entries']} schedules, "
-          f"{st['hits']} hits / {st['misses']} misses during the run")
+    if schedule is not None:
+        st = schedule.stats()
+        report.update(schedule_hits=st["hits"], schedule_misses=st["misses"])
+        print(f"[serve] schedule cache: {st['entries']} schedules, "
+              f"{st['hits']} hits / {st['misses']} misses during the run")
+    if args.engine == "wave":
+        return report
+    kv = eng.kv_bytes()
+    report.update(kv_peak_bytes=kv["peak"], kv_allocated_bytes=kv["allocated"],
+                  policy=eng.policy.name,
+                  ttft_steps_p95=_pct([r.ttft_steps for r in results], 95),
+                  spec=eng.spec_stats())
+    if not eng.paged:
+        print(f"[serve] dense stripes: KV {kv['allocated']} B allocated "
+              f"(peak = allocated)")
+        return report
+    ps = eng.pool.stats()
+    report.update(kv_quantized=ps["quantized"],
+                  pool_peak_blocks=ps["peak_used"],
+                  pool_blocks=ps["num_blocks"],
+                  shared_token_hits=ps["shared_token_hits"],
+                  preemptions=eng.preemptions, resumes=eng.resumes,
+                  avg_pool_util=eng.avg_pool_util())
     print(f"[serve] kv pool: peak {ps['peak_used']}/{ps['num_blocks']} "
           f"blocks, {ps['shared_token_hits']} shared-prefix token hits, "
           f"peak KV {kv['peak']} / allocated {kv['allocated']} B")

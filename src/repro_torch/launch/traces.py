@@ -18,6 +18,36 @@ POLICY_MAX_LEN = 160
 OVERLOAD_KV_BLOCKS = 20
 #: the repetition trace's window (26-token prompts + 24 new tokens)
 SPEC_MAX_LEN = 96
+#: the mixed trace's shared system-prompt prefix, window and slots
+#: (serve_bench's defaults) and request count (its ``--dry`` run's)
+MIXED_PREFIX_LEN = 32
+MIXED_MAX_LEN = 160
+MIXED_SLOTS = 4
+MIXED_REQUESTS = 8
+
+
+def mixed_trace(n_requests: int, slots: int, vocab: int, seed: int = 0
+                ) -> list[Request]:
+    """The engine comparison's trace: requests in groups of 4 sharing a
+    system-prompt prefix, mostly short chat turns, and one long-prompt
+    straggler with a long decode per slots-worth (what wave batching is
+    worst at)."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(3, vocab, MIXED_PREFIX_LEN).astype(np.int32)
+                for _ in range(-(-n_requests // 4))]
+    reqs = []
+    for i in range(n_requests):
+        straggler = (i % slots) == (slots - 1)
+        tail_len = int(rng.integers(48, 64) if straggler
+                       else rng.integers(4, 16))
+        max_new = int(rng.integers(24, 32) if straggler
+                      else rng.integers(2, 8))
+        prompt = np.concatenate([prefixes[i // 4],
+                                 rng.integers(3, vocab, tail_len
+                                              ).astype(np.int32)])
+        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=max_new,
+                            eos=-1))
+    return reqs
 
 
 def overload_trace(n_requests: int, vocab: int, seed: int = 1

@@ -1,19 +1,32 @@
-"""GQA attention over the block-paged KV pool (port of the paged path of
-``repro.models.attention``).
+"""GQA attention (port of ``repro.models.attention``, MLA aside): the
+full sequence, dense KV stripes, and the block-paged KV pool.
 
-Shapes: x (B, S, D); q (B, S, H, hd); pools (num_blocks, block_size, KV,
-hd) addressed through a per-slot block table (B, nbs); ``pos`` per-slot
-write cursors (B,).  Decode steps (S == 1) run the paged-decode kernel
-(``kernels.paged_attention``); prefill chunks (S > 1) gather the slot's
-blocks and run the blockwise online-softmax ``_flash`` in plain PyTorch
-(the reference's is plain JAX as well).
+Shapes: x (B, S, D); q (B, S, H, hd).  Three layouts of the KV:
 
-The KV pools are updated IN PLACE: ``_paged_write`` scatters into the
-pool tensor it is given and returns it.  Under ``cfg.quant_kv`` the pools
-are int8 with fp32 per-(position, KV head) scale sidecars ``k_scale`` /
-``v_scale``: ``_paged_write_quant`` quantizes each written row on the
-way in, decode runs the int8 kernel variant, and the prefill gather
-dequantizes through the compute dtype (the reference's rounding).
+  * none (``cache=None``): the full-sequence forward attends over its own
+    k/v;
+  * dense stripes (``block_table=None``): k/v (B, max_len, KV, hd) with a
+    write position ``pos``, a scalar (the wave engine) or (B,) (the dense
+    continuous engine's slots); ``_cache_write`` writes at ``pos``
+    clamped to ``max_len - S``, as ``jax.lax.dynamic_update_slice``
+    clamps, so a slot at ``max_len`` writes onto its last row;
+  * pools (num_blocks, block_size, KV, hd) addressed through a per-slot
+    block table (B, nbs); ``pos`` per-slot write cursors (B,).  Decode
+    steps (S == 1) run the paged-decode kernel
+    (``kernels.paged_attention``); prefill chunks (S > 1) gather the
+    slot's blocks.
+
+Everything but the paged decode step runs the blockwise online-softmax
+``_flash`` in plain PyTorch (the reference's is plain JAX as well); on
+dense stripes it walks the whole stripe with ``kv_valid = pos + S``.
+
+The KV pools and stripes are updated IN PLACE: ``_paged_write`` and
+``_cache_write`` write into the tensor they are given and return it.
+Under ``cfg.quant_kv`` the pools are int8 with fp32 per-(position, KV
+head) scale sidecars ``k_scale`` / ``v_scale``: ``_paged_write_quant``
+quantizes each written row on the way in, decode runs the int8 kernel
+variant, and the prefill gather dequantizes through the compute dtype
+(the reference's rounding).
 """
 
 from __future__ import annotations
@@ -122,6 +135,28 @@ def _paged_write(buf: torch.Tensor, update: torch.Tensor, pos: torch.Tensor,
     return buf
 
 
+def _cache_write(buf: torch.Tensor, update: torch.Tensor,
+                 pos: torch.Tensor | int) -> torch.Tensor:
+    """Write ``update`` (B, S, ...) into the stripes ``buf`` (B, T, ...)
+    IN PLACE at time index ``pos``: a scalar (every row) or (B,) (each
+    row its own).  The start is clamped to [0, T - S], as
+    ``jax.lax.dynamic_update_slice`` clamps it: no index error and no
+    wrap.  Index tensors only, so no device value is read."""
+    B, T = buf.shape[0], buf.shape[1]
+    S = update.shape[1]
+    dev = buf.device
+    upd = update.to(buf.dtype)
+    start = torch.as_tensor(pos, device=dev).long().clamp(0, T - S)
+    if start.dim() == 0:
+        return buf.index_copy_(1, start + torch.arange(S, device=dev), upd)
+    rows = (torch.arange(B, device=dev)[:, None] * T + start[:, None]
+            + torch.arange(S, device=dev)[None, :])
+    tail = tuple(buf.shape[2:])
+    buf.view((B * T,) + tail).index_copy_(0, rows.reshape(-1),
+                                          upd.reshape((B * S,) + tail))
+    return buf
+
+
 def _paged_write_quant(qbuf: torch.Tensor, sbuf: torch.Tensor,
                        update: torch.Tensor, pos: torch.Tensor,
                        block_table: torch.Tensor
@@ -141,17 +176,20 @@ def _paged_write_quant(qbuf: torch.Tensor, sbuf: torch.Tensor,
 
 
 def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                  kind: BlockKind, pos_offset: torch.Tensor, cache: dict,
-                  block_table: torch.Tensor,
+                  kind: BlockKind, pos_offset: torch.Tensor | int = 0,
+                  cache: dict | None = None,
+                  block_table: torch.Tensor | None = None,
                   pos_advance: torch.Tensor | None = None,
-                  backend=None) -> tuple[torch.Tensor, dict]:
-    """Cached GQA attention over the paged pool: writes k/v at each row's
-    cursor and attends over the row's valid prefix.  ``pos_advance`` (B,)
-    overrides the cursor increment (ragged chunks advance by each row's
-    real token count).  ``kind`` ATTN_LOCAL attends over the last
-    ``cfg.local_window`` positions only (query position minus key position
-    below the window, in the decode kernel and in ``_flash`` alike).
-    Returns (out, new cache with advanced cursors)."""
+                  backend=None) -> tuple[torch.Tensor, dict | None]:
+    """GQA attention over the full sequence (``cache=None``), dense
+    stripes (a cache and no ``block_table``) or the paged pool (both):
+    writes k/v at each row's cursor and attends over the row's valid
+    prefix.  ``pos_advance`` (B,) overrides the paged cursor increment
+    (ragged chunks advance by each row's real token count).  ``kind``
+    ATTN_LOCAL attends over the last ``cfg.local_window`` positions only
+    (query position minus key position below the window, in the decode
+    kernel and in ``_flash`` alike).  Returns (out, new cache with
+    advanced cursors, or None)."""
     if kind not in (BlockKind.ATTN, BlockKind.ATTN_LOCAL):
         raise NotImplementedError(f"{kind} blocks are not ported yet")
     B, S, _ = x.shape
@@ -164,48 +202,69 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     if cfg.rope_mode is not RopeMode.NONE:
         frac = 0.5 if cfg.rope_mode is RopeMode.HALF else 1.0
-        cos, sin = rope_tables(S, int(hd * frac), cfg.rope_theta, pos_offset)
+        cos, sin = rope_tables(S, int(hd * frac), cfg.rope_theta, pos_offset,
+                               device=x.device)
         q = apply_rope(q, cos, sin, frac)
         k = apply_rope(k, cos, sin, frac)
 
     window = cfg.local_window if kind is BlockKind.ATTN_LOCAL else None
     scale = hd ** -0.5
-    adv = S if pos_advance is None else pos_advance
-    kv_valid = cache["pos"] + adv
-    if "k_scale" in cache:
-        ck, cks = _paged_write_quant(cache["k"], cache["k_scale"], k,
-                                     cache["pos"], block_table)
-        cv, cvs = _paged_write_quant(cache["v"], cache["v_scale"], v,
-                                     cache["pos"], block_table)
-        new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs,
-                     "pos": kv_valid}
+    if cache is None:
+        k_att, v_att, kv_valid, new_cache = k, v, None, None
+    elif block_table is None:
+        # dense stripes: write at pos, attend over the whole stripe
+        kv_valid = cache["pos"] + S
+        k_att = _cache_write(cache["k"], k, cache["pos"])
+        v_att = _cache_write(cache["v"], v, cache["pos"])
+        new_cache = {"k": k_att, "v": v_att, "pos": kv_valid}
     else:
-        cks = cvs = None
-        ck = _paged_write(cache["k"], k, cache["pos"], block_table)
-        cv = _paged_write(cache["v"], v, cache["pos"], block_table)
-        new_cache = {"k": ck, "v": cv, "pos": kv_valid}
-    if S == 1:
-        out = PA.decode_attention(
-            q.reshape(B, KV, G, hd), ck, cv, block_table,
-            kv_valid.to(torch.int32), scale=scale, window=window,
-            logit_cap=cfg.attn_logit_softcap, k_scale=cks, v_scale=cvs,
-            device=x.device)
-        return dense(out.reshape(B, 1, H * hd), p["wo"],
-                     backend=backend), new_cache
-    k_att = PA.gather_pool_blocks(ck, block_table)
-    v_att = PA.gather_pool_blocks(cv, block_table)
-    if cks is not None:
-        # dequantize through the compute dtype, as the reference does
-        k_att = k_att.to(x.dtype) * PA.gather_pool_blocks(
-            cks, block_table).to(x.dtype)[..., None]
-        v_att = v_att.to(x.dtype) * PA.gather_pool_blocks(
-            cvs, block_table).to(x.dtype)[..., None]
+        adv = S if pos_advance is None else pos_advance
+        kv_valid = cache["pos"] + adv
+        if "k_scale" in cache:
+            ck, cks = _paged_write_quant(cache["k"], cache["k_scale"], k,
+                                         cache["pos"], block_table)
+            cv, cvs = _paged_write_quant(cache["v"], cache["v_scale"], v,
+                                         cache["pos"], block_table)
+            new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs,
+                         "pos": kv_valid}
+        else:
+            cks = cvs = None
+            ck = _paged_write(cache["k"], k, cache["pos"], block_table)
+            cv = _paged_write(cache["v"], v, cache["pos"], block_table)
+            new_cache = {"k": ck, "v": cv, "pos": kv_valid}
+        if S == 1:
+            out = PA.decode_attention(
+                q.reshape(B, KV, G, hd), ck, cv, block_table,
+                kv_valid.to(torch.int32), scale=scale, window=window,
+                logit_cap=cfg.attn_logit_softcap, k_scale=cks, v_scale=cvs,
+                device=x.device)
+            return dense(out.reshape(B, 1, H * hd), p["wo"],
+                         backend=backend), new_cache
+        k_att = PA.gather_pool_blocks(ck, block_table)
+        v_att = PA.gather_pool_blocks(cv, block_table)
+        if cks is not None:
+            # dequantize through the compute dtype, as the reference does
+            k_att = k_att.to(x.dtype) * PA.gather_pool_blocks(
+                cks, block_table).to(x.dtype)[..., None]
+            v_att = v_att.to(x.dtype) * PA.gather_pool_blocks(
+                cvs, block_table).to(x.dtype)[..., None]
     out = _flash(q.reshape(B, S, KV, G, hd), k_att, v_att, scale=scale,
                  causal=cfg.causal, window=window, q_offset=pos_offset,
                  kv_valid=kv_valid, logit_cap=cfg.attn_logit_softcap,
                  block=cfg.attn_block_kv)
     return dense(out.reshape(B, S, H * hd), p["wo"],
                  backend=backend), new_cache
+
+
+def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype, device: torch.device) -> dict:
+    """Empty dense stripes of one attention block: k/v (batch, max_len,
+    KV, hd) in ``dtype`` and a scalar ``pos``.  No int8 form under
+    ``cfg.quant_kv``, as in the reference (int8 KV is the pool's)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def make_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,

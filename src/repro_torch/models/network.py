@@ -1,8 +1,8 @@
-"""Network assembly and the paged serving functions (port of the serving
-part of ``repro.models.network``): decoder stacks of ATTN and ATTN_LOCAL
-blocks (sandwich norms, scaled embeddings and softcaps by config),
-attention-free MAMBA2 stacks, and zamba2's hybrid of MAMBA2 blocks, shared
-attention and a MAMBA2 tail.
+"""Network assembly, the full-sequence forward and the serving functions,
+dense and paged (port of ``repro.models.network`` without training):
+decoder stacks of ATTN and ATTN_LOCAL blocks (sandwich norms, scaled
+embeddings and softcaps by config), attention-free MAMBA2 stacks, and
+zamba2's hybrid of MAMBA2 blocks, shared attention and a MAMBA2 tail.
 
 Parameters keep the reference's tree: ``{"embed": {"table"}, "final_norm",
 "blocks": (group,)}`` with a leading stacked group dim on every block
@@ -10,7 +10,14 @@ leaf, and where the config asks for them ``lm_head``, ``vision_proj``,
 ``tail_blocks`` (a tuple of unstacked blocks) and ``shared_attn`` (the
 ``n_shared_attn_sets`` attention sets, stacked).  Blocks run group by
 group, each group's kinds in pattern order, as the reference's scan does.
-Paged cache trees keep its layout too:
+Dense cache trees (``init_caches``) keep its layout:
+
+  ``{"groups": ({"k": (G, B, max_len, KV, hd), "v": ..., "pos": (G,)},
+  ...), "tail": ({"conv": (B, ...), "ssm": ...},)}``
+
+with a scalar ``pos`` a layer (``expand_cache_pos`` makes it (B,) a
+layer for the continuous engine's slots) and no int8 form.  Paged cache
+trees keep its layout too:
 
   ``{"groups": ({"k": (G, nb, bs, KV, hd), "v": ..., "pos": (G, slots)},
   ...), "tail": ({"conv": (slots, ...), "ssm": ...},)}``
@@ -26,8 +33,11 @@ one top-level cursor ``"pos": (slots,)``.  The serving functions update
 the pool and slot-state tensors IN PLACE and return the tree with new
 cursors.
 
-llava's ``vision_proj`` is defined so that weights carry over; the paged
-entry points take tokens only, as the reference's do.
+llava's patch prefix (``batch["patches"]`` (B, P, D) through
+``vision_proj``, ahead of the tokens, so text positions start at P) enters
+through ``forward`` and the dense ``prefill`` / ``prefill_ragged``; the
+paged entry points and decode steps take tokens only, as the reference's
+do.
 """
 
 from __future__ import annotations
@@ -41,10 +51,10 @@ from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models.config import BlockKind, ModelConfig
-from repro_torch.models.layers import (ParamDef, embed_apply, embed_defs,
-                                       head_apply, init_params, mlp_apply,
-                                       mlp_defs, rms_norm, stack_defs,
-                                       tree_map)
+from repro_torch.models.layers import (ParamDef, dense, embed_apply,
+                                       embed_defs, head_apply, init_params,
+                                       mlp_apply, mlp_defs, rms_norm,
+                                       stack_defs, tree_map)
 
 PyTree = Any
 
@@ -127,24 +137,28 @@ def _layer(tree: PyTree, i: int) -> PyTree:
 
 
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
-                 x: torch.Tensor, cache: dict, shared: dict | None, *,
-                 pos_offset: torch.Tensor, block_table: torch.Tensor,
+                 x: torch.Tensor, cache: dict | None, shared: dict | None, *,
+                 pos_offset: torch.Tensor | int,
+                 block_table: torch.Tensor | None,
                  pos_advance: torch.Tensor | None,
                  seq_lens: torch.Tensor | None, backend
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One block over its cache (per-slot state or pool leaves and cursor
-    of this layer).  Recurrent state is written in place; returns (x, the
-    attention cursor after the call, or None for a MAMBA2 block)."""
+    """One block over its cache (per-slot state, dense stripes or pool
+    leaves, and the cursor of this layer), or over none (the forward).
+    Recurrent state is written in place; returns (x, the attention cursor
+    after the call, or None for a MAMBA2 block or without a cache)."""
     eps = cfg.norm_eps
     if kind is BlockKind.MAMBA2:
         # ``seq_lens`` masks the recurrence of pad positions and of rows
         # riding along (0): their state comes back unchanged
-        state = {k: cache[k] for k in _SLOT_STATE_KEYS}
+        state = (None if cache is None
+                 else {k: cache[k] for k in _SLOT_STATE_KEYS})
         out, new = S.mamba2_block(p["mamba"], rms_norm(x, p["ln1"], eps),
                                   cfg, state=state, seq_len=seq_lens,
                                   backend=backend)
-        for k in _SLOT_STATE_KEYS:
-            state[k].copy_(new[k])
+        if state is not None:
+            for k in _SLOT_STATE_KEYS:
+                state[k].copy_(new[k])
         return x + out, None
     attn_kw = dict(pos_offset=pos_offset, cache=cache,
                    block_table=block_table, pos_advance=pos_advance,
@@ -153,7 +167,7 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
         out, nc = A.gqa_attention(shared["attn"],
                                   rms_norm(x, shared["ln1"], eps), cfg,
                                   kind=BlockKind.ATTN, **attn_kw)
-        return x + out, nc["pos"]
+        return x + out, None if nc is None else nc["pos"]
     out, nc = A.gqa_attention(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
                               kind=kind, **attn_kw)
     if cfg.post_norms:
@@ -163,23 +177,23 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
                     backend=backend)
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln2"], eps)
-    return x + out, nc["pos"]
+    return x + out, None if nc is None else nc["pos"]
 
 
-def _block_cache(tree: dict, i: int | None) -> dict:
-    """The cache of one block: layer ``i`` of a group-stacked cache, or a
-    tail block's own (``i`` None)."""
-    return {k: (a if i is None else a[i]) for k, a in tree.items()}
+def _block_cache(tree: dict, i: int) -> dict:
+    """The cache of one block: layer ``i`` of a group-stacked cache."""
+    return {k: a[i] for k, a in tree.items()}
 
 
 def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
-                pos_offset: torch.Tensor, caches: PyTree,
-                block_table: torch.Tensor,
-                pos_advance: torch.Tensor | None,
-                seq_lens: torch.Tensor | None) -> tuple[torch.Tensor,
-                                                        PyTree]:
+                pos_offset: torch.Tensor | int, caches: PyTree | None,
+                block_table: torch.Tensor | None = None,
+                pos_advance: torch.Tensor | None = None,
+                seq_lens: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, PyTree | None]:
     """The pattern groups in order (each group's kinds in pattern order),
-    then the tail blocks; returns (x, the cache tree with new cursors)."""
+    then the tail blocks; returns (x, the cache tree with new cursors, or
+    None without one).  ``block_table`` None: dense stripes."""
     backend = gemm_backend(cfg)
     kw = dict(pos_offset=pos_offset, block_table=block_table,
               pos_advance=pos_advance, seq_lens=seq_lens, backend=backend)
@@ -193,41 +207,72 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
         for i, kind in enumerate(cfg.pattern):
             x, pos = _apply_block(
                 cfg, kind, _layer(params["blocks"][i], gi), x,
-                _block_cache(caches["groups"][i], gi), shared, **kw)
+                None if caches is None
+                else _block_cache(caches["groups"][i], gi), shared, **kw)
             if pos is not None:
                 new_pos[i].append(pos)
+    tail = []
+    for i, kind in enumerate(cfg.tail):
+        tcache = None if caches is None else caches["tail"][i]
+        x, pos = _apply_block(cfg, kind, params["tail_blocks"][i], x,
+                              tcache, None, **kw)
+        tail.append(tcache if pos is None else {**tcache, "pos": pos})
+    if caches is None:
+        return x, None
     out: dict = {"groups": tuple(
         {**gcache, "pos": torch.stack(new_pos[i])} if new_pos[i] else gcache
         for i, gcache in enumerate(caches["groups"]))}
     if cfg.tail:
-        tail = []
-        for i, kind in enumerate(cfg.tail):
-            tcache = caches["tail"][i]
-            x, pos = _apply_block(cfg, kind, params["tail_blocks"][i], x,
-                                  _block_cache(tcache, None), None, **kw)
-            tail.append(tcache if pos is None else {**tcache, "pos": pos})
         out["tail"] = tuple(tail)
     return x, out
 
 
-def _embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def _embed_inputs(params: PyTree, cfg: ModelConfig, batch: dict
+                  ) -> torch.Tensor:
+    """Token embeddings, with llava's projected patch embeddings
+    (``batch["patches"]`` (B, P, D)) ahead of them where given; the
+    sqrt(d) scale applies to the tokens only, as in the reference."""
     dt = _dtype(cfg.compute_dtype)
-    x = embed_apply(params["embed"], tokens, dt)
+    x = embed_apply(params["embed"], batch["tokens"], dt)
     if cfg.scale_embeddings:
         # sqrt(d_model) rounded to the compute dtype first, as the
         # reference does (in bf16, sqrt(3584) does not round to itself)
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=dt))
+    if cfg.frontend == "patches" and "patches" in batch:
+        pe = dense(batch["patches"].to(dt), params["vision_proj"]["w"],
+                   params["vision_proj"]["b"], backend=gemm_backend(cfg))
+        x = torch.cat([pe, x], dim=1)
     return x
 
 
-def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-           caches: PyTree, pos_offset: torch.Tensor,
-           block_table: torch.Tensor, pos_advance: torch.Tensor | None,
-           seq_lens: torch.Tensor | None,
+def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    """The final norm and the head: fp32 logits (B, S, V)."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = (params["embed"]["table"] if cfg.tie_embeddings
+            else params["lm_head"])
+    return head_apply(head, x, cfg.final_logit_softcap,
+                      backend=gemm_backend(cfg))
+
+
+def forward(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Full-sequence forward: fp32 logits (B, S, V) at every position
+    (patch positions included).  The reference's second output, the MoE
+    auxiliary loss, belongs to the training path."""
+    _check_supported(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    x, _ = _run_blocks(params, cfg, x, pos_offset=0, caches=None)
+    return _logits(params, cfg, x)
+
+
+def _serve(params: PyTree, cfg: ModelConfig, batch: dict,
+           caches: PyTree, pos_offset: torch.Tensor | int,
+           block_table: torch.Tensor | None = None,
+           pos_advance: torch.Tensor | None = None,
+           seq_lens: torch.Tensor | None = None,
            last_index: torch.Tensor | None = None, all_rows: bool = False
            ) -> tuple[torch.Tensor, PyTree]:
-    x = _embed(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, batch)
     x, new_caches = _run_blocks(params, cfg, x, pos_offset=pos_offset,
                                 caches=caches, block_table=block_table,
                                 pos_advance=pos_advance, seq_lens=seq_lens)
@@ -236,34 +281,53 @@ def _serve(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
         adv = 0 if pos_advance is None else pos_advance.to(
             caches["pos"].dtype)
         new_caches["pos"] = caches["pos"] + adv
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = (params["embed"]["table"] if cfg.tie_embeddings
-            else params["lm_head"])
     if all_rows:                 # verify: logits at every position
-        return head_apply(head, x, cfg.final_logit_softcap,
-                          backend=gemm_backend(cfg)), new_caches
+        return _logits(params, cfg, x), new_caches
     if last_index is not None:   # ragged: each row's last REAL token
         x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))
     else:
         x = x[:, -1:]
-    logits = head_apply(head, x, cfg.final_logit_softcap,
-                        backend=gemm_backend(cfg))
-    return logits[:, 0], new_caches
+    return _logits(params, cfg, x)[:, 0], new_caches
+
+
+def prefill(params: PyTree, cfg: ModelConfig, batch: dict, caches: PyTree
+            ) -> tuple[torch.Tensor, PyTree]:
+    """The prompt (``batch["tokens"]`` (B, S), llava's
+    ``batch["patches"]`` ahead of it) into dense caches from position 0;
+    returns (next-token logits fp32 (B, V), caches written in place)."""
+    return _serve(params, cfg, batch, caches, 0)
+
+
+def prefill_ragged(params: PyTree, cfg: ModelConfig, batch: dict,
+                   caches: PyTree, last_index: torch.Tensor
+                   ) -> tuple[torch.Tensor, PyTree]:
+    """``prefill`` of right-padded prompts (real tokens first): logits at
+    each row's ``last_index`` (B,), its last REAL token.  The pad tail
+    writes KV past each prompt that the caller masks (cursor = the true
+    length) and decode overwrites; recurrent state takes the masked
+    update (pads get dt == 0), so it is the state after the last real
+    token."""
+    idx = last_index.to(torch.int32)
+    return _serve(params, cfg, batch, caches, 0, seq_lens=idx + 1,
+                  last_index=idx)
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: PyTree, pos: torch.Tensor,
-                block_table: torch.Tensor,
+                block_table: torch.Tensor | None = None,
                 pos_advance: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, PyTree]:
-    """One decode step over the paged pool: tokens (B, 1); pos (B,) the
-    per-slot positions; ``pos_advance`` (B,) 1 for the slots that decode
-    and 0 for rows riding along (it doubles as the SSM validity mask, so
-    a 0-row's recurrent state is untouched).  Returns (logits fp32 (B,
-    V), caches); the pools and slot states are written in place."""
-    return _serve(params, cfg, tokens, caches, pos, block_table, pos_advance,
-                  seq_lens=pos_advance)
+    """One decode step: tokens (B, 1); ``pos`` a scalar (a uniform wave)
+    or (B,) per-slot positions.  Without ``block_table`` the caches are
+    dense stripes (every row writes at its ``pos``, clamped to the last
+    row, and every recurrent state updates).  With it they are the paged
+    pool, and ``pos_advance`` (B,) is 1 for the slots that decode and 0
+    for rows riding along (it doubles as the SSM validity mask, so a
+    0-row's recurrent state is untouched).  Returns (logits fp32 (B, V),
+    caches); stripes, pools and slot states are written in place."""
+    return _serve(params, cfg, {"tokens": tokens}, caches, pos, block_table,
+                  pos_advance, seq_lens=pos_advance)
 
 
 def prefill_paged_chunk(params: PyTree, cfg: ModelConfig,
@@ -279,8 +343,8 @@ def prefill_paged_chunk(params: PyTree, cfg: ModelConfig,
     lens = seq_lens.to(torch.int32)
     view = gather_slot_view(caches, slot_ids)
     pos0 = _first_pos_leaf(view)
-    logits, new_view = _serve(params, cfg, tokens, view, pos0, block_rows,
-                              lens, lens, last_index)
+    logits, new_view = _serve(params, cfg, {"tokens": tokens}, view, pos0,
+                              block_rows, lens, lens, last_index)
     return logits, scatter_slot_view(caches, new_view, slot_ids)
 
 
@@ -299,9 +363,60 @@ def verify_paged_chunk(params: PyTree, cfg: ModelConfig,
     lens = seq_lens.to(torch.int32)
     view = gather_slot_view(caches, slot_ids)
     pos0 = _first_pos_leaf(view)
-    logits, new_view = _serve(params, cfg, tokens, view, pos0, block_rows,
-                              lens, lens, all_rows=True)
+    logits, new_view = _serve(params, cfg, {"tokens": tokens}, view, pos0,
+                              block_rows, lens, lens, all_rows=True)
     return logits, scatter_slot_view(caches, new_view, slot_ids)
+
+
+# ---------------------------------------------------------------------------
+# Dense cache trees
+# ---------------------------------------------------------------------------
+
+def _stack_groups(cfg: ModelConfig, block) -> tuple:
+    """Per pattern position, ``block(kind)`` for every group, stacked."""
+    def group(kind):
+        per_layer = [block(kind) for _ in range(cfg.n_groups_scan)]
+        return {k: torch.stack([c[k] for c in per_layer])
+                for k in per_layer[0]}
+    return tuple(group(k) for k in cfg.pattern)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype: torch.dtype | None = None,
+                device: str | torch.device | None = None) -> PyTree:
+    """Dense cache tree: KV stripes (batch, max_len) per attention layer,
+    recurrent state per MAMBA2 layer; groups stacked, the tail
+    unstacked.  Cursors are scalars (``expand_cache_pos`` gives each
+    slot its own)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or _dtype(cfg.compute_dtype)
+
+    def block(kind):
+        if kind is BlockKind.MAMBA2:
+            return S.make_ssm_state(cfg, batch, dtype, dev)
+        return A.make_kv_cache(cfg, batch, max_len, dtype, dev)
+    caches: dict = {"groups": _stack_groups(cfg, block)}
+    if cfg.tail:
+        caches["tail"] = tuple(block(k) for k in cfg.tail)
+    return caches
+
+
+def insert_slot_caches(caches: PyTree, slot_caches: PyTree, slot: int,
+                       pos_value: int) -> PyTree:
+    """Copy a freshly prefilled batch-1 tree into slot ``slot`` of a
+    per-slot dense tree, in place: leaves under ``groups`` take the slot
+    on axis 1, tail leaves on axis 0, and the slot's cursors become
+    ``pos_value`` (the true prompt length, not the padded bucket)."""
+    def fn(path, big, small):
+        if _is_pos(path):
+            out = big.clone()
+            out[..., slot] = pos_value
+            return out
+        ax = _axis(path)
+        big.select(ax, slot).copy_(small.select(ax, 0))
+        return big
+    return tree_map(fn, caches, slot_caches)
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +440,7 @@ def init_paged_caches(cfg: ModelConfig, slots: int, num_blocks: int,
         return A.make_paged_kv_cache(cfg, num_blocks, block_size, dtype,
                                      dev)
 
-    def group(kind):
-        per_layer = [block(kind) for _ in range(cfg.n_groups_scan)]
-        return {k: torch.stack([c[k] for c in per_layer])
-                for k in per_layer[0]}
-    caches: dict = {"groups": tuple(group(k) for k in cfg.pattern)}
+    caches: dict = {"groups": _stack_groups(cfg, block)}
     if cfg.tail:
         caches["tail"] = tuple(block(k) for k in cfg.tail)
     if cfg.attention_free:
@@ -450,8 +561,8 @@ def copy_paged_blocks(caches: PyTree, src: torch.Tensor, dst: torch.Tensor
 
 
 def kv_cache_bytes(caches: PyTree) -> int:
-    """Bytes of the attention KV pool leaves (0 for an attention-free
-    tree: slot state and cursors are not counted)."""
+    """Bytes of the attention KV leaves, pool or dense stripes (0 for an
+    attention-free tree: slot state and cursors are not counted)."""
     total = 0
 
     def fn(path, a):

@@ -1,5 +1,6 @@
-"""Paged continuous-batching serving engine (port of the paged path of
-``repro.serving.engine.ContinuousEngine``).
+"""Serving engines (port of ``repro.serving.engine``): paged and dense
+continuous batching (``ContinuousEngine``) and the wave baseline
+(``WaveEngine``).
 
 Requests are admitted per SLOT: when a slot finishes its request, the
 next queued request is admitted into it while the other slots keep
@@ -14,6 +15,15 @@ decoding.  The design, as in the reference:
     fixed-size chunks; each engine step runs at most one chunk batch (all
     admitting slots in one call) and then one decode step over the
     decoding slots, so resident slots never stall longer than one chunk.
+  * **Dense stripes (``paged=False``).**  Every slot owns a (max_len)
+    KV stripe.  A new prompt is right-padded to the next prefill bucket
+    (16, 32, ... up to max_len) and prefilled alone at batch 1
+    (``network.prefill_ragged``: logits of its last real token, masked
+    recurrent update), then copied into its slot
+    (``network.insert_slot_caches``) with its cursor at the true length.
+    Every slot's cursor advances each decode step, idle ones too (their
+    writes land in their own stripe, clamped to its last row).  No
+    pool: no prefix sharing, preemption or speculation.
   * **Sampling.**  Each step's tokens come from ``sampling.sample`` on the
     engine's device: greedy where a request's temperature is 0, else a
     draw from ``softmax(logits / T)`` with the engine's
@@ -50,10 +60,14 @@ decoding.  The design, as in the reference:
     §5 explorer picks (``precision_plan``), so a quantized run is pure
     cache hits too.
 
+``WaveEngine`` is the seed baseline: waves of ``slots`` requests,
+prompts right-aligned (left-padded with token 0) into one dense
+``prefill``, then lockstep decode steps until the wave drains.
+
 The reference's jitted programs become plain calls of the
-``models.network`` serving functions; the pools are updated in place.
-The dense engine, the async API, hard deadlines and load shedding, the
-tracer and the resilience layer are later slices (ROADMAP.md).
+``models.network`` serving functions; pools and stripes are updated in
+place.  The async API, hard deadlines and load shedding, the tracer and
+the resilience layer are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -157,8 +171,30 @@ class _Slot:
         return self.ent.req
 
 
+def _bucket_for(n: int, buckets: Sequence[int]) -> int:
+    return next(b for b in buckets if n <= b)
+
+
+def _draw(logits: torch.Tensor, temps: np.ndarray,
+          generator: torch.Generator) -> torch.Tensor:
+    """A step's tokens on the device: argmax when every row is greedy,
+    else ``sampling.sample`` with the engine's generator."""
+    if (temps > 0).any():
+        return sample(logits, torch.as_tensor(temps, device=logits.device),
+                      generator)
+    return logits.argmax(dim=-1)
+
+
+def _check_params(params: Any, device: torch.device) -> None:
+    table = params["embed"]["table"]
+    if table.device.type != device.type:
+        raise ValueError(f"params live on {table.device}, the engine runs "
+                         f"on {device}")
+
+
 class ContinuousEngine:
-    """Slot-level continuous-batching engine over the paged KV pool.
+    """Slot-level continuous-batching engine over the paged KV pool, or
+    over dense stripes with ``paged=False``.
 
     ``params`` must live on ``device`` (CUDA unless the caller names
     another; without a card and without ``device="cpu"`` construction
@@ -168,12 +204,16 @@ class ContinuousEngine:
     (``spec_degrade`` halves the live depth when the pool denies an
     extend and wins a step of it back after ``SPEC_RECOVER_STEPS`` clean
     steps).  ``audit=True`` checks the pool invariants after every
-    step."""
+    step.  The pool's arguments and ``prefill_chunk`` are the paged
+    path's; the dense path pads each prompt to the next of ``buckets``
+    (16, 32, ... below max_len, then max_len).  Speculation and the
+    policies that reserve pool blocks need the pool and are refused with
+    ``paged=False``."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 8,
                  max_len: int = 2048, seed: int = 0, block_size: int = 16,
                  kv_blocks: int | None = None,
-                 prefill_chunk: int | None = None,
+                 prefill_chunk: int | None = None, paged: bool = True,
                  policy: str | SchedulerPolicy = "fifo",
                  spec: str | DraftProvider | None = None, spec_k: int = 4,
                  spec_degrade: bool = False, audit: bool = False,
@@ -182,12 +222,15 @@ class ContinuousEngine:
         self.device = resolve_device(device)
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: no decode serving")
-        table = params["embed"]["table"]
-        if table.device.type != self.device.type:
-            raise ValueError(f"params live on {table.device}, the engine "
-                             f"runs on {self.device}")
+        _check_params(params, self.device)
         self.spec: DraftProvider | None = None
         if spec is not None:
+            if not paged:
+                raise ValueError(
+                    "speculative decoding serves through the paged KV pool "
+                    "(lazy extend + truncate rollback); the dense "
+                    "(paged=False) engine has no pool -- drop spec= or use "
+                    "paged=True")
             if cfg.has_recurrent_state:
                 raise ValueError(
                     f"{cfg.name} is a hybrid (SSM) arch: the verify step "
@@ -212,6 +255,12 @@ class ContinuousEngine:
         self.params = params
         self.policy = (make_policy(policy) if isinstance(policy, str)
                        else policy)
+        if self.policy.requires_pool and not paged:
+            raise ValueError(
+                f"policy {self.policy.name!r} schedules over KV-pool block "
+                f"reservations; the dense (paged=False) engine has no pool "
+                f"-- use policy='fifo'")
+        self.paged = paged
         self.slots = slots
         self.max_len = max_len
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -229,28 +278,42 @@ class ContinuousEngine:
         #: (memoized: explored at construction only)
         self.precision_plan: dict[tuple[int, int, int], str] = {}
 
-        self.prefill_chunk = min(prefill_chunk or 32, max_len)
-        per_slot = blocks_for(max_len, block_size)
-        if kv_blocks is None:
-            # ~3/4 of the dense ceiling (the reference's default)
-            kv_blocks = max(per_slot + 1, 1 + (3 * slots * per_slot + 3) // 4)
-        if kv_blocks < per_slot + 1:
-            raise ValueError(f"kv_blocks {kv_blocks} cannot host one "
-                             f"full-window request ({per_slot} blocks of "
-                             f"{block_size})")
-        # prefix sharing skips the shared prefill; recurrent (SSM) state
-        # cannot be rebuilt from shared KV blocks, so it would drop the
-        # prefix from the recurrence: off for such configs
-        self.pool = KVPool(kv_blocks, block_size, slots=slots,
-                           max_len=max_len,
-                           share_prefixes=not cfg.has_recurrent_state,
-                           quantized=cfg.quant_kv, metrics=m)
-        self.caches = N.expand_cache_pos(
-            N.init_paged_caches(cfg, slots, kv_blocks, block_size,
-                                device=self.device), slots)
-        self._bt = self._table_tensor()
-        self._slot_ids = torch.arange(slots, dtype=torch.int32,
-                                      device=self.device)
+        # the dense path's padded prompt lengths: every admissible prompt
+        # has one, max_len the last
+        self.buckets, b = [], 16
+        while b < max_len:
+            self.buckets.append(b)
+            b *= 2
+        self.buckets.append(max_len)
+        self.pool: KVPool | None = None
+        if paged:
+            self.prefill_chunk = min(prefill_chunk or 32, max_len)
+            per_slot = blocks_for(max_len, block_size)
+            if kv_blocks is None:
+                # ~3/4 of the dense ceiling (the reference's default)
+                kv_blocks = max(per_slot + 1,
+                                1 + (3 * slots * per_slot + 3) // 4)
+            if kv_blocks < per_slot + 1:
+                raise ValueError(f"kv_blocks {kv_blocks} cannot host one "
+                                 f"full-window request ({per_slot} blocks "
+                                 f"of {block_size})")
+            # prefix sharing skips the shared prefill; recurrent (SSM)
+            # state cannot be rebuilt from shared KV blocks, so it would
+            # drop the prefix from the recurrence: off for such configs
+            self.pool = KVPool(kv_blocks, block_size, slots=slots,
+                               max_len=max_len,
+                               share_prefixes=not cfg.has_recurrent_state,
+                               quantized=cfg.quant_kv, metrics=m)
+            self.caches = N.expand_cache_pos(
+                N.init_paged_caches(cfg, slots, kv_blocks, block_size,
+                                    device=self.device), slots)
+            self._bt = self._table_tensor()
+            self._slot_ids = torch.arange(slots, dtype=torch.int32,
+                                          device=self.device)
+        else:
+            self.caches = N.expand_cache_pos(
+                N.init_caches(cfg, slots, max_len, device=self.device),
+                slots)
         self._slots: list[_Slot | None] = [None] * slots
         self._pos = np.zeros(slots, np.int32)   # mirror of the cursors
         self._pending: collections.deque[_Pending] = collections.deque()
@@ -291,11 +354,13 @@ class ContinuousEngine:
         # pre-resolve the steady-state shapes: decode (M = slots), the
         # chunk batch (M = slots * chunk), the gather GEMMs and, under
         # spec=, the verify family (slots * (k+1) rows, head included),
-        # so the serving hot path never explores
+        # so the serving hot path never explores (a dense admission
+        # registers its bucket when it first sees it)
         self._register_gemms(slots, slots)
-        self._register_gemms(slots * self.prefill_chunk, slots)
-        for M, Nn, K in PA.gather_gemm_shapes(cfg, block_size):
-            self.schedule.resolve(M, Nn, K, self._prec)
+        if paged:
+            self._register_gemms(slots * self.prefill_chunk, slots)
+            for M, Nn, K in PA.gather_gemm_shapes(cfg, block_size):
+                self.schedule.resolve(M, Nn, K, self._prec)
         if self.spec is not None:
             L = self.spec_k + 1
             self._register_gemms(slots * L, slots * L)
@@ -444,11 +509,12 @@ class ContinuousEngine:
         at most one prefill-chunk batch and one batched decode (or verify)
         step, then refill.  Returns the number of active slots."""
         self._admit()
-        self._maybe_preempt()
-        pre = [i for i, s in enumerate(self._slots)
-               if s is not None and s.phase == "prefill"]
-        if pre:
-            self._prefill_chunk_step(pre)
+        if self.paged:
+            self._maybe_preempt()
+            pre = [i for i, s in enumerate(self._slots)
+                   if s is not None and s.phase == "prefill"]
+            if pre:
+                self._prefill_chunk_step(pre)
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and s.phase == "decode"]
         if active:
@@ -467,7 +533,7 @@ class ContinuousEngine:
         probe = (self.pool.probe([int(t) for t in ent.full_prompt],
                                  self._reserve_horizon(remaining),
                                  evictable_hint=evictable_hint)
-                 if self.policy.needs_probes else None)
+                 if self.paged and self.policy.needs_probes else None)
         return PendingView(index=index, rid=ent.req.rid,
                            prompt_len=len(ent.full_prompt),
                            new_tokens=remaining, priority=ent.req.priority,
@@ -478,8 +544,8 @@ class ContinuousEngine:
 
     def _pending_views(self) -> tuple[list[PendingView], float]:
         now = time.perf_counter()
-        hint = (self.pool.evictable_cached() if self.policy.needs_probes
-                else None)
+        hint = (self.pool.evictable_cached()
+                if self.paged and self.policy.needs_probes else None)
         return [self._pending_view(i, e, now, hint)
                 for i, e in enumerate(self._pending)], now
 
@@ -517,7 +583,9 @@ class ContinuousEngine:
                 return                      # the policy holds the queue
             ent = self._pending[idx]
             del self._pending[idx]
-            if not self._admit_one(slot, ent):
+            if not self.paged:
+                self._admit_dense(slot, ent)
+            elif not self._admit_one(slot, ent):
                 self._c_admit_fail.inc()        # retried next step
                 self._pending.insert(idx, ent)
                 return
@@ -548,6 +616,38 @@ class ContinuousEngine:
         if ent.resume_tokens:
             self._c_resumes.inc()
         return True
+
+    def _admit_dense(self, slot: int, ent: _Pending) -> None:
+        """Dense path: one bucketed ragged prefill at batch 1 into a fresh
+        batch-1 tree, copied into the slot with its cursor at the prompt
+        length; the first token comes with it."""
+        req = ent.req
+        plen = len(req.prompt)
+        bucket = _bucket_for(plen, self.buckets)
+        t0 = time.perf_counter()
+        self._register_gemms(bucket, 1)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :plen] = req.prompt
+        small = N.init_caches(self.cfg, 1, self.max_len, device=self.device)
+        logits, small = N.prefill_ragged(
+            self.params, self.cfg, {"tokens": self._tensor(toks)}, small,
+            self._tensor(np.asarray([plen - 1], np.int32)))
+        self.caches = N.insert_slot_caches(self.caches, small, slot, plen)
+        tok = int(self._pick(logits, np.asarray([req.temperature],
+                                                np.float32))[0])
+        self._pos[slot] = plen
+        self._c_prefills.inc()
+        self._c_admissions.inc()
+        now = time.perf_counter()
+        ent.t_first = now
+        ent.ttft_steps = self.steps + self.chunk_steps
+        self._slots[slot] = _Slot(ent=ent, produced=[tok], cur_tok=tok,
+                                  t_admit=t0, t_prefill_done=now,
+                                  phase="decode")
+        # a prompt filling the stripe has no decode headroom: the next
+        # write would clamp onto its last token, so it ends here
+        if self._done(slot):
+            self._finish(slot)
 
     def _maybe_preempt(self) -> None:
         """Ask the policy for a victim (at most one a step), evict it and
@@ -604,13 +704,8 @@ class ContinuousEngine:
         return torch.as_tensor(a, device=self.device)
 
     def _pick(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
-        """The step's tokens on the device, read back in one sync: argmax
-        when every row is greedy, else ``sampling.sample``."""
-        if (temps > 0).any():
-            tok = sample(logits, self._tensor(temps), self.generator)
-        else:
-            tok = logits.argmax(dim=-1)
-        return tok.cpu().numpy()
+        """The step's tokens (``_draw``), read back in one sync."""
+        return _draw(logits, temps, self.generator).cpu().numpy()
 
     def _prefill_chunk_step(self, pre: list[int]) -> None:
         """One chunk for EVERY admitting slot in one call; other rows ride
@@ -674,16 +769,25 @@ class ContinuousEngine:
             toks[i, 0] = self._slots[i].cur_tok
             temps[i] = self._slots[i].req.temperature
             adv[i] = 1
-            self.pool.ensure_writable(i, int(self._pos[i]),
-                                      int(self._pos[i]))
-        self._apply_cow()
-        logits, self.caches = N.decode_step(
-            self.params, self.cfg, self._tensor(toks), self.caches,
-            self._tensor(self._pos), self._bt, self._tensor(adv))
-        # the step above IS the application of the gather GEMMs
-        PA.note_gather_applied(self.schedule, self.cfg,
-                               self.pool.block_size, self._prec)
-        self._pos += adv
+        if self.paged:
+            for i in active:
+                self.pool.ensure_writable(i, int(self._pos[i]),
+                                          int(self._pos[i]))
+            self._apply_cow()
+            logits, self.caches = N.decode_step(
+                self.params, self.cfg, self._tensor(toks), self.caches,
+                self._tensor(self._pos), self._bt, self._tensor(adv))
+            # the step above IS the application of the gather GEMMs
+            PA.note_gather_applied(self.schedule, self.cfg,
+                                   self.pool.block_size, self._prec)
+            self._pos += adv
+        else:
+            logits, self.caches = N.decode_step(
+                self.params, self.cfg, self._tensor(toks), self.caches,
+                self._tensor(self._pos))
+            # every slot's cursor advanced, idle ones too (they write in
+            # their own stripe): the mirror follows
+            self._pos += 1
         self._c_steps.inc()
         tok_np = self._pick(logits, temps)
         for i in active:
@@ -821,12 +925,15 @@ class ContinuousEngine:
             latency_s=now - ent.t_submit, ttft_s=ent.t_first - ent.t_submit,
             ttft_steps=max(ent.ttft_steps, 0), preemptions=ent.preemptions))
         self._slots[slot] = None
-        # the admission prompt's full blocks stay in the prefix cache
-        self.pool.release_slot(slot,
-                               prompt=[int(t) for t in ent.full_prompt])
-        self._bt = self._table_tensor()
+        if self.paged:
+            # the admission prompt's full blocks stay in the prefix cache
+            self.pool.release_slot(slot, prompt=[int(t) for t in
+                                                 ent.full_prompt])
+            self._bt = self._table_tensor()
 
     def _end_step(self) -> int:
+        if not self.paged:
+            return sum(s is not None for s in self._slots)
         util = self.pool.used_blocks / (self.pool.num_blocks - 1)
         self._c_util_sum.inc(util)
         self._c_util_samples.inc()
@@ -845,8 +952,91 @@ class ContinuousEngine:
     # -- reporting -------------------------------------------------------------
 
     def kv_bytes(self) -> dict[str, int]:
-        """``allocated``: bytes of the pool leaves; ``peak``: the
-        high-watermark of blocks holding live data, in bytes."""
+        """``allocated``: bytes of the KV leaves (pool or stripes);
+        ``peak``: the high-watermark of blocks holding live data, in bytes
+        (dense: the whole stripes, committed up front)."""
         alloc = N.kv_cache_bytes(self.caches)
+        if not self.paged:
+            return {"allocated": alloc, "peak": alloc}
         return {"allocated": alloc,
                 "peak": alloc // self.pool.num_blocks * self.pool.peak_used}
+
+
+class WaveEngine:
+    """The seed's wave-level engine, kept as the baseline: each wave fills
+    all slots, prefills once (prompts right-aligned, left-padded with
+    token 0, in one dense ``prefill``; the pads are real inputs, as in
+    the reference), then decodes in lockstep at the scalar position
+    ``plen + step`` until the whole wave drains.  ``params`` and
+    ``device`` as for ``ContinuousEngine``; ``seed`` seeds the sampler."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 8,
+                 max_len: int = 2048, seed: int = 0,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        _check_params(params, self.device)
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.steps = 0
+
+    def run(self, requests: Sequence[Request]) -> list[Result]:
+        """Serve all requests in waves of ``slots``."""
+        out: list[Result] = []
+        queue = list(requests)
+        t_start = time.perf_counter()
+        while queue:
+            wave, queue = queue[:self.slots], queue[self.slots:]
+            out.extend(self._run_wave(wave, t_start))
+        return out
+
+    def _run_wave(self, wave: Sequence[Request], t_start: float
+                  ) -> list[Result]:
+        B = len(wave)
+        plen = max(len(r.prompt) for r in wave)
+        toks = np.zeros((B, plen), np.int32)
+        for i, r in enumerate(wave):   # right-aligned: the last token is real
+            toks[i, plen - len(r.prompt):] = r.prompt
+        temps = np.array([r.temperature for r in wave], np.float32)
+        max_new = max(r.max_new_tokens for r in wave)
+
+        caches = N.init_caches(self.cfg, B, self.max_len, device=self.device)
+        t0 = time.perf_counter()
+        logits, caches = N.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(toks, device=self.device)}, caches)
+        if logits.is_cuda:
+            torch.cuda.synchronize(logits.device)
+        t1 = time.perf_counter()
+        tok = _draw(logits, temps, self.generator)
+        tok_np = tok.cpu().numpy()
+
+        done = np.zeros(B, bool)
+        produced: list[list[int]] = [[] for _ in range(B)]
+        for step in range(max_new):
+            for i, r in enumerate(wave):
+                if not done[i]:
+                    produced[i].append(int(tok_np[i]))
+                    if (tok_np[i] == r.eos
+                            or len(produced[i]) >= r.max_new_tokens):
+                        done[i] = True
+            if done.all():
+                break
+            if plen + step >= self.max_len:
+                # the stripes are full: a further write would clamp onto
+                # the last row, so the wave is truncated
+                break
+            pos = torch.tensor(plen + step, dtype=torch.int32,
+                               device=self.device)
+            logits, caches = N.decode_step(self.params, self.cfg,
+                                           tok[:, None].to(torch.int32),
+                                           caches, pos)
+            self.steps += 1
+            tok = _draw(logits, temps, self.generator)
+            tok_np = tok.cpu().numpy()
+        t2 = time.perf_counter()
+        return [Result(r.rid, np.asarray(produced[i], np.int32), t1 - t0,
+                       t2 - t1, latency_s=t2 - t_start, ttft_s=t1 - t_start)
+                for i, r in enumerate(wave)]

@@ -853,6 +853,70 @@ def test_mpgemm_hopper_family_shapes(cuda, arch):
     assert TMP.launches_by_route == {"hopper": n, "cuda_core": 0}
 
 
+#: the dense path's K2 calls: qwen2-0.5b's q, k/v, o, gate/up and down at
+#: a dense admission (batch 1, a bucket of rows) with its head over the
+#: one last row, and llava's vision_proj over four rows of 1152 patches
+DENSE_SHAPES = {
+    **{f"qwen2-admission-{M}": [(M, 896, 896, "kn"), (M, 128, 896, "kn"),
+                                (M, 4864, 896, "kn"), (M, 896, 4864, "kn"),
+                                (1, 151936, 896, "nk")]
+       for M in (16, 512, 1024)},
+    "llava-vision-proj": [(4608, 4096, 4096, "kn")],
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_SHAPES))
+def test_mpgemm_hopper_dense_path_shapes(cuda, case):
+    """K2 at the dense engine's admission rows and llava's vision_proj
+    through ``ops.matmul`` under a schedule cache (the engine's call),
+    against the plain version with the tolerances of
+    ``test_mpgemm_hopper_family_shapes``; every launch on the Hopper
+    route, a repeat bit-equal."""
+    schedule = ScheduleCache()
+    TMP.reset_launches()
+    n = 0
+    for M, N, K, layout in DENSE_SHAPES[case]:
+        a, b = _bf16_operands(cuda, M, N, K, M + N + K, layout)
+        out_dtype = torch.float32 if layout == "nk" else torch.bfloat16
+        got = TOPS.matmul(a, b, out_dtype=out_dtype, schedule=schedule)
+        again = TOPS.matmul(a, b, out_dtype=out_dtype, schedule=schedule)
+        want = TMP.mpgemm_plain(a, b, bk=128, k_fold=1, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        n += 2
+        tol = 1e-4 if out_dtype == torch.float32 else 1e-2
+        rel = ((got.float() - want.float()).abs()
+               / (1 + want.float().abs())).max().item()
+        assert got.dtype == out_dtype and rel <= tol, (M, N, K, rel)
+        assert torch.equal(got, again), (M, N, K)
+    assert TMP.launches_by_route == {"hopper": n, "cuda_core": 0}
+
+
+@pytest.mark.parametrize("shape,tail", [
+    ((1, 2, 256, 80, 1, 64, 128), 150),
+    ((1, 4, 256, 112, 1, 64, 64), 40),
+    ((1, 1, 64, 80, 1, 64, 128), 20),
+], ids=["mamba2-bucket-512", "zamba2-bucket-1024", "mamba2-bucket-64"])
+def test_ssd_intra_chunked_dense_admission(cuda, shape, tail):
+    """K5's grouped entry at a dense admission: batch 1, the bucket's
+    chunks, and the prompt's pad tail (dt = 0, the masked update) on the
+    last ``tail`` rows of the last chunk only; 2e-4 of the plain version,
+    two launches bit-equal."""
+    B, nc, Q, H, G, P, N = shape
+    x, dt, _cums, b, c = _grouped_ssd_inputs(cuda, *shape, seed=sum(shape))
+    dt[:, -1, Q - tail:] = 0.0
+    cums = torch.cumsum(-dt, dim=2)
+    args = (x, dt, cums, b, c)
+    before = TSSD.launches.count
+    got = TSSD.ssd_intra_chunked(*args)
+    again = TSSD.ssd_intra_chunked(*args)
+    want = TSSD.ssd_intra_chunked_ref(*args)
+    torch.cuda.synchronize()
+    assert TSSD.launches.count == before + 2
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("fold", [2, 3, 4, 8])
 def test_mpgemm_hopper_fold_bands_on_a_cluster(cuda, fold):
     """OS with k_fold 2, 3, 4 and 8 (bands over a cluster of at most 8
