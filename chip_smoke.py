@@ -259,6 +259,42 @@ The dense serving layout adds, after the families' phases:
   ``_flash``'s CUDA-event span.  The end of the run prints the time
   split of each slice: the families since qwen1.5 and this one.
 
+The request lifecycle (the async API, the lifecycle tracer and the
+resilience plane) adds, after dense_scaled_down_fp32:
+
+  resilience_path: full-width qwen2-0.5b, bf16, scheduled, 8 slots,
+  max_len 1024, phase 5's requests: a fault-free synchronous run with
+  the tracer on, then the same engine through ``start()`` /
+  ``submit()`` / ``get_result()`` / ``stop()`` under ``Telemetry.on()``
+  with a fault schedule (a ``reserve`` denial, a transient ``dispatch``
+  fault on a decode step of the trace's last stretch, a ``poison`` on
+  one rid), a ``cancel`` of a running rid, a ``deadline_s`` half the
+  fault-free latency of another and ``max_pending`` 8 with a ninth
+  request submitted (shed).  Gates: one Result a request with the
+  status and error its fault calls for; the pool audit after every step
+  and at the end; ok tokens those of the fault-free run but for
+  near-ties (``divergences``); the Chrome trace valid, its admit /
+  preempt / finish counts the registry's; K1 launches a decode step and
+  K2 launches a step those of the synchronous run; the fault counters.
+  Prints a decode step's wall (8 slots decoding) under
+  ``Telemetry.off()`` and ``on()``;
+
+  restart_path: ``serve_with_restarts`` at full width through a
+  ``crash`` in mid-trace on the same requests: one Result a request, all
+  ok, tokens those of the uncrashed run but for near-ties,
+  ``KVPool.from_snapshot(s).snapshot_state() == s`` for the dead pool's
+  state, and a launch failure injected as a ``KernelError`` (from
+  ``_build.check_launch``) leaving ``step()`` with no Result and no
+  retry;
+
+  resilience_scaled_down_fp32: both drills on scaled-down fp32 qwen2
+  (x4): ok tokens equal to the fault-free run's, a cut request's a
+  prefix of them;
+
+  serve_cli_path: ``launch/serve.py`` at full width (scheduled) with
+  ``--trace-out`` and ``--metrics-out`` into a temporary directory: the
+  trace valid, the Prometheus text written, K1 and K2 launched.
+
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
 the CUDA-core route; the int8 main path does the same for K3
@@ -282,6 +318,7 @@ import dataclasses
 import itertools
 import json
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -371,6 +408,7 @@ def main(argv=None) -> int:
     from repro_torch.launch import limb_tiles as LT
     from repro_torch.launch import traces as TRACES
     from repro_torch.launch import quant_tiles as QT
+    from repro_torch.launch import serve as SERVE
     from repro_torch.launch import ssd_tiles as SSD_T
     from repro_torch.launch.timing import (bound_ms, card_line, host_us,
                                            kernel_ms, time_ms, top_ops)
@@ -379,11 +417,16 @@ def main(argv=None) -> int:
     from repro_torch.models.config import BlockKind
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
+    from repro_torch.obs import Telemetry, validate_chrome_trace
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
     from repro_torch.serving import sampling as SAMPLING
     from repro_torch.serving.engine import (ContinuousEngine, Request,
                                             WaveEngine)
+    from repro_torch.serving.kv_pool import KVPool
     from repro_torch.serving.policy import POLICY_NAMES
+    from repro_torch.serving.resilience import (FaultPlane, FaultSpec,
+                                                ResilienceConfig,
+                                                serve_with_restarts)
     from repro_torch.serving.spec import ModelDraft
 
     dev = torch.device("cuda")
@@ -394,7 +437,7 @@ def main(argv=None) -> int:
     #: seconds of each slice's cases inside the earlier phases (K1, K2,
     #: K3 and K5 checks, timing rows), by slice and phase: the families
     #: since qwen1.5 and the dense path
-    added_s: dict = {"families": {}, "dense": {}}
+    added_s: dict = {"families": {}, "dense": {}, "resilience": {}}
 
     def added(phase, t0, slice_="families"):
         got = added_s[slice_]
@@ -2916,6 +2959,353 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"dense_scaled_down_fp32 failed: {bad}")
 
+    # -- the async API, the lifecycle tracer and the resilience plane ---------
+    def drill_requests(vocab):
+        """Phase 5's requests (rids 0-7) and a ninth, rid 8, to be shed."""
+        reqs = requests(np.random.default_rng(args.seed), 8, 64, 513, 32,
+                        vocab)
+        return reqs, dataclasses.replace(reqs[0], rid=8)
+
+    def per_step(counts, eng):
+        """K1 launches a decode step and K2 launches a step (decode and
+        chunk steps both run every projection and the head)."""
+        return [counts["paged_decode"] / max(eng.steps, 1),
+                counts["mpgemm"] / max(eng.steps + eng.chunk_steps, 1)]
+
+    def decode_walls(cfg, params, telemetry, n=16):
+        """Host walls of ``n`` decode steps with all 8 slots decoding (64-
+        token prompts: two chunk steps, then decode only); each step ends
+        in its token readback."""
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               device=dev, telemetry=telemetry)
+        for r in requests(np.random.default_rng(7), 8, 64, 65, n + 4,
+                          cfg.vocab):
+            eng.submit(r)
+        eng.step()
+        eng.step()
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.step()
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    def parted(cfg, params, reqs, got, base, exact):
+        """Requests whose tokens part from ``base`` over their common
+        length: any at all in fp32 (``exact``), else those ``divergences``
+        does not rate a near-tie."""
+        if exact:
+            return [rid for rid, t in got.items()
+                    if t != base[rid][:len(t)]]
+        prompts = {r.rid: r.prompt for r in reqs}
+        return [d["rid"] for d in divergences(
+            cfg, params, prompts, {"drill": {"tokens": got}}, base)
+            if not d["ok"]]
+
+    def resilience_drill(cfg, params, exact):
+        """Phase 5's requests through ``start()`` / ``submit()`` /
+        ``get_result()`` under ``Telemetry.on()`` and a fixed fault
+        schedule, beside a fault-free synchronous run of the same engine
+        (see p_resilience)."""
+        reqs, extra = drill_requests(cfg.vocab)
+        by_len = sorted(reqs, key=lambda r: len(r.prompt))
+        # the longest request is left alone: its decode tail is the
+        # trace's last stretch, where the dispatch fault lands
+        rid_deadline, rid_poison, rid_cancel = (r.rid for r in by_len[:3])
+        eng0, res0, _, cnt0 = serve(cfg, params, reqs, 8, 1024, audit=True,
+                                    telemetry=Telemetry.on())
+        base = {r.rid: r.tokens.tolist() for r in res0}
+        k_base = per_step(cnt0, eng0)
+        ev0 = list(eng0.obs.tracer.events)
+        last_chunk = max(e.step for e in ev0 if e.etype == "chunk_batch")
+        last = max(e.step for e in ev0 if e.etype == "decode")
+        decode_at = (last_chunk + last) // 2
+        deadline = 0.5 * next(r.latency_s for r in res0
+                              if r.rid == rid_deadline)
+        plane = FaultPlane([FaultSpec("reserve", at=1),
+                            FaultSpec("dispatch", at=decode_at),
+                            FaultSpec("poison", rid=rid_poison)])
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               audit=True, device=dev,
+                               telemetry=Telemetry.on(), faults=plane,
+                               resilience=ResilienceConfig(max_pending=8))
+        eng.schedule.reset()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(dataclasses.replace(
+                r, deadline_s=deadline if r.rid == rid_deadline else None))
+        eng.submit(extra)               # the queue is at its bound: shed
+        eng.start()
+        while not any(s is not None and s.req.rid == rid_cancel
+                      for s in list(eng._slots)):
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("the cancel target never ran")
+            time.sleep(0.002)
+        cancelled = eng.cancel(rid_cancel)
+        res = [eng.get_result(timeout=600) for _ in range(len(reqs) + 1)]
+        eng.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cnt = launch_counts()
+        eng.pool.check()
+        trace = eng.obs.tracer.chrome_trace()
+        kinds = {}
+        for e in eng.obs.tracer.events:
+            kinds[e.etype] = kinds.get(e.etype, 0) + 1
+        queue_ends = sum(1 for e in eng.obs.tracer.events
+                         if e.etype in ("timeout", "cancel") and e.slot < 0)
+        v = eng.metrics.value
+        got = {r.rid: r.tokens.tolist() for r in res}
+        status = {r.rid: (r.status, r.error) for r in res}
+        want = {rid: ("ok", None) for rid in base}
+        want.update({8: ("shed", "pending queue at bound 8"),
+                     rid_poison: ("failed", "injected:poison"),
+                     rid_deadline: ("timeout", "deadline_s exceeded"),
+                     rid_cancel: ("cancelled", None)})
+        k_run = per_step(cnt, eng)
+        fired = {f["kind"]: f for f in plane.fired}
+        out = {
+            "rids": {"deadline": rid_deadline, "poison": rid_poison,
+                     "cancel": rid_cancel, "shed": 8},
+            "deadline_s": deadline, "decode_at": decode_at,
+            "status": {str(k): list(s) for k, s in status.items()},
+            "statuses_ok": status == want and cancelled,
+            "one_result_each": sorted(got) == list(range(9)),
+            "tokens": {str(k): t for k, t in got.items()},
+            "parted": parted(cfg, params, reqs, {
+                rid: t for rid, t in got.items() if rid in base}, base,
+                exact),
+            "wall_s": wall, "fired": plane.fired,
+            "dispatch_fault_on_decode":
+                fired.get("dispatch", {}).get("dispatch") == "decode",
+            "counters": {k: v(k) for k in (
+                "resilience.faults_injected", "resilience.retries",
+                "resilience.quarantined", "resilience.admit_failures",
+                "resilience.shed", "resilience.cancelled",
+                "resilience.timeouts", "engine.steps", "engine.chunk_steps",
+                "engine.admissions", "engine.preemptions",
+                "engine.requests_finished")},
+            "trace_errors": validate_chrome_trace(json.loads(
+                json.dumps(trace))),
+            "trace_events": len(eng.obs.tracer),
+            "trace_counts_match": (
+                kinds.get("admit", 0) + kinds.get("resume", 0)
+                == v("engine.admissions")
+                and kinds.get("preempt", 0) == v("engine.preemptions")
+                and kinds.get("finish", 0) + kinds.get("shed", 0)
+                + queue_ends == v("engine.requests_finished")),
+            "launches_per_step": k_run, "baseline_per_step": k_base,
+            "launches_match": (
+                k_run == k_base and k_base[0].is_integer()
+                and k_base[1].is_integer() and cnt["paged_decode"] > 0
+                and cnt["mpgemm"] > 0),
+            "launches": {k: cnt[k] for k in ("paged_decode", "mpgemm")},
+            "schedule_misses": eng.schedule.stats()["misses"]}
+        out["counts_ok"] = (
+            out["counters"]["resilience.faults_injected"] == 3
+            and out["counters"]["resilience.retries"] == 1
+            and out["counters"]["resilience.quarantined"] == 1
+            and out["counters"]["resilience.admit_failures"] == 1
+            and out["counters"]["resilience.shed"] == 1
+            and out["counters"]["resilience.cancelled"] == 1
+            and out["counters"]["resilience.timeouts"] == 1)
+        return out, base, reqs, eng0
+
+    def restart_drill(cfg, params, base, reqs, eng0, exact):
+        """``serve_with_restarts`` through a crash in mid-trace, the dead
+        pool's snapshot round trip, and a kernel launch failure leaving
+        ``step()``."""
+        crash_at = (eng0.steps + eng0.chunk_steps) // 2
+        plane = FaultPlane([FaultSpec("crash", at=crash_at)])
+        engines = []
+
+        def make_engine():
+            engines.append(ContinuousEngine(cfg, params, slots=8,
+                                            max_len=1024, audit=True,
+                                            device=dev, faults=plane))
+            return engines[-1]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = serve_with_restarts(make_engine, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        engines[-1].pool.check()
+        dead = engines[0].pool.snapshot_state()
+        got = {r.rid: r.tokens.tolist() for r in res}
+        out = {"crash_at": crash_at, "engines": len(engines),
+               "wall_s": wall,
+               "one_result_each": sorted(got) == sorted(base),
+               "all_ok": all(r.status == "ok" for r in res),
+               "parted": parted(cfg, params, reqs, got, base, exact),
+               "restored": engines[-1].metrics.value("resilience.restored"),
+               "pool_round_trip":
+                   KVPool.from_snapshot(dead).snapshot_state() == dead,
+               "dead_pool_used": sum(dead["n_slot_blocks"])}
+        # a kernel launch failure (the kernels' own exception class) leaves
+        # step(): never retried, never a failed Result
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               device=dev)
+        eng.submit(reqs[0])
+        orig, raised = _build.check_launch, None
+
+        def refuse(rc, what):
+            raise _build.KernelError(f"{what}: injected launch failure")
+
+        _build.check_launch = refuse
+        try:
+            for _ in range(8):
+                eng.step()
+        except _build.KernelError as e:
+            raised = e
+        finally:
+            _build.check_launch = orig
+        torch.cuda.synchronize()
+        out["kernel_error_propagated"] = (
+            raised is not None and not eng.drain_results()
+            and eng.metrics.value("resilience.retries") == 0
+            and eng.metrics.value("resilience.quarantined") == 0)
+        out["kernel_error"] = str(raised)
+        return out
+
+    def drill_failures(d):
+        bad = [k for k in ("statuses_ok", "one_result_each",
+                           "dispatch_fault_on_decode", "trace_counts_match",
+                           "launches_match", "counts_ok") if not d[k]]
+        bad += ["trace_errors"] if d["trace_errors"] else []
+        bad += ["parted beyond near-ties"] if d["parted"] else []
+        return bad
+
+    def restart_failures(r):
+        bad = [k for k in ("one_result_each", "all_ok", "pool_round_trip",
+                           "kernel_error_propagated") if not r[k]]
+        bad += ["parted beyond near-ties"] if r["parted"] else []
+        bad += ["no restart"] if r["engines"] != 2 else []
+        return bad
+
+    def show_drill(tag, d):
+        c = d["counters"]
+        print(f"[{card}] {tag}: async run {d['wall_s']:.2f} s, "
+              f"{c['engine.steps']:.0f} decode + {c['engine.chunk_steps']:.0f}"
+              f" chunk steps; statuses {d['status']}; faults injected "
+              f"{c['resilience.faults_injected']:.0f} (dispatch at step "
+              f"{d['decode_at']} on the decode kind "
+              f"{d['dispatch_fault_on_decode']}), retries "
+              f"{c['resilience.retries']:.0f}, quarantined "
+              f"{c['resilience.quarantined']:.0f}, admit failures "
+              f"{c['resilience.admit_failures']:.0f}, shed "
+              f"{c['resilience.shed']:.0f}, cancelled "
+              f"{c['resilience.cancelled']:.0f}, timeouts "
+              f"{c['resilience.timeouts']:.0f}; K1 / K2 a step "
+              f"{d['launches_per_step']} (sync run "
+              f"{d['baseline_per_step']}); trace {d['trace_events']} events,"
+              f" valid {not d['trace_errors']}, counts = registry "
+              f"{d['trace_counts_match']}; parted from the fault-free run "
+              f"{d['parted']}")
+
+    def show_restart(tag, r):
+        print(f"[{card}] {tag}: crash at step {r['crash_at']}, "
+              f"{r['engines']} engines, {r['restored']:.0f} entries "
+              f"restored, {r['wall_s']:.2f} s; all ok {r['all_ok']}, parted "
+              f"{r['parted']}; dead pool ({r['dead_pool_used']} blocks "
+              f"mapped) round trip {r['pool_round_trip']}; kernel launch "
+              f"failure propagated {r['kernel_error_propagated']}")
+
+    drills: dict = {}
+
+    def p_resilience():
+        """Full-width qwen2-0.5b (bf16, scheduled, 8 slots, max_len 1024)
+        on phase 5's requests and a ninth: the fault-free synchronous run
+        (tracer on), then the same engine through start() / submit() /
+        get_result() with a reserve denial, a transient fault on a decode
+        step, a poisoned request, a deadline half the fault-free latency
+        of one request, a cancel of a running one and max_pending 8 (the
+        ninth is shed); the tracer's cost on a decode step."""
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        params = params_full()
+        d, base, reqs, eng0 = resilience_drill(cfg, params, exact=False)
+        drills["full"] = (base, reqs, eng0)
+        walls = {"off": [], "on": []}
+        for mode in ("off", "on", "off", "on"):
+            walls[mode] += decode_walls(cfg, params, Telemetry.on()
+                                        if mode == "on" else None)
+        med = {k: float(np.median(w)) * 1e3 for k, w in walls.items()}
+        d["decode_step_wall_ms"] = med
+        d["tracer_cost"] = med["on"] / med["off"] - 1
+        rep["resilience"] = d
+        show_drill("resilience_path", d)
+        print(f"[{card}] decode step wall (8 slots decoding, median of 32):"
+              f" Telemetry.off() {med['off']:.2f} ms, Telemetry.on() "
+              f"{med['on']:.2f} ms ({100 * d['tracer_cost']:+.1f}%)")
+        bad = drill_failures(d)
+        if bad:
+            raise AssertionError(f"resilience_path failed: {bad}")
+
+    def p_restart():
+        """``serve_with_restarts`` at full width through a crash in
+        mid-trace, on resilience_path's requests."""
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        params = params_full()
+        if "full" not in drills:            # resilience_path did not run
+            reqs = drill_requests(cfg.vocab)[0]
+            eng0, res0, _, _ = serve(cfg, params, reqs, 8, 1024, audit=True)
+            drills["full"] = ({r.rid: r.tokens.tolist() for r in res0},
+                              reqs, eng0)
+        base, reqs, eng0 = drills["full"]
+        r = restart_drill(cfg, params, base, reqs, eng0, exact=False)
+        rep["restart"] = r
+        show_restart("restart_path", r)
+        bad = restart_failures(r)
+        if bad:
+            raise AssertionError(f"restart_path failed: {bad}")
+
+    def p_resilience_small():
+        """Both drills on scaled-down fp32 qwen2 (x4): the ok tokens equal
+        the fault-free run's exactly, a cut request's are a prefix."""
+        cfg, params, _ = small_fp32()
+        d, base, reqs, eng0 = resilience_drill(cfg, params, exact=True)
+        r = restart_drill(cfg, params, base, reqs, eng0, exact=True)
+        rep["resilience_small"] = {"drill": d, "restart": r}
+        show_drill("resilience_scaled_down_fp32", d)
+        show_restart("resilience_scaled_down_fp32", r)
+        bad = drill_failures(d) + restart_failures(r)
+        if bad:
+            raise AssertionError(f"resilience_scaled_down_fp32 failed: {bad}")
+
+    def p_serve_cli():
+        """``launch/serve.py`` at full width (scheduled) with
+        ``--trace-out`` and ``--metrics-out`` into a temporary directory:
+        the continuous engine through its async API, the trace valid, the
+        Prometheus text written, K1 and K2 launched."""
+        with tempfile.TemporaryDirectory() as tmp:
+            trace, prom = f"{tmp}/trace.json", f"{tmp}/metrics.prom"
+            torch.cuda.synchronize()
+            reset_launches()
+            r = SERVE.main(["--arch", "qwen2_0_5b", "--gemm-backend",
+                            "scheduled", "--requests", "8", "--slots", "4",
+                            "--trace-out", trace, "--metrics-out", prom,
+                            "--seed", str(args.seed)])
+            torch.cuda.synchronize()
+            cnt = launch_counts()
+            with open(trace) as f:
+                errs = validate_chrome_trace(json.load(f))
+            with open(prom) as f:
+                text = f.read()
+        out = {"ok": r["ok"], "requests": r["requests"],
+               "tok_per_s": r["tok_per_s"], "trace_errors": errs,
+               "prometheus_lines": len(text.splitlines()),
+               "launches": {k: cnt[k] for k in ("paged_decode", "mpgemm")}}
+        rep["serve_cli"] = out
+        print(f"[{card}] launch/serve.py --trace-out --metrics-out: "
+              f"{out['ok']}/{out['requests']} ok, {r['tok_per_s']:.1f} "
+              f"tok/s, trace valid {not errs}, {out['prometheus_lines']} "
+              f"Prometheus lines, launches {out['launches']}")
+        if (errs or out["ok"] != 8 or "engine_steps" not in text
+                or not cnt["paged_decode"] or not cnt["mpgemm"]):
+            raise AssertionError(f"serve_cli_path failed: {out}")
+
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
 
@@ -3525,8 +3915,12 @@ def main(argv=None) -> int:
                           for a in FAMILIES)
     dense_phases = (("dense_path", p_dense), ("patches_path", p_patches),
                     ("dense_scaled_down_fp32", p_dense_small))
-    phases += family_phases + dense_phases + (("timing", p_timing),
-                                              ("step_profile", p_profile))
+    resilience_phases = (("resilience_path", p_resilience),
+                         ("restart_path", p_restart),
+                         ("resilience_scaled_down_fp32", p_resilience_small),
+                         ("serve_cli_path", p_serve_cli))
+    phases += family_phases + dense_phases + resilience_phases + (
+        ("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
         if name != "device" and "build" in sm.failures:
@@ -3539,7 +3933,8 @@ def main(argv=None) -> int:
     # all the rest of this run: the families since qwen1.5, then the dense
     # path (dense_path, patches_path, dense_scaled_down_fp32)
     slices = {"families": {"families_path"} | {n for n, _ in family_phases},
-              "dense": {n for n, _ in dense_phases}}
+              "dense": {n for n, _ in dense_phases},
+              "resilience": {n for n, _ in resilience_phases}}
     secs = {n: v["seconds"] for n, v in rep["phases"].items()}
     rep["time_split"] = {}
     for sl, names in slices.items():

@@ -32,6 +32,13 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port did not build, load or launch.  The serving
+    engine's step watchdog lets it propagate (it never retries it or
+    fails requests for it): a broken kernel is a fault of the program,
+    not of a request."""
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler (``$CUDA_HOME/bin/nvcc``, the default
     toolkit location, or ``nvcc`` on PATH)."""
@@ -41,8 +48,8 @@ def nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
-                           "built on a machine with the CUDA toolkit")
+        raise KernelError("nvcc not found: the port's CUDA kernels are "
+                          "built on a machine with the CUDA toolkit")
     return found
 
 
@@ -98,8 +105,8 @@ def build(names=SOURCES, *, ptxas_info: bool = False) -> dict[str, str]:
             continue
         os.replace(tmp, out)          # atomic: concurrent builders agree
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
-                           + "\n".join(logs[n] for n in failed))
+        raise KernelError("nvcc failed for " + ", ".join(failed) + "\n"
+                          + "\n".join(logs[n] for n in failed))
     return logs
 
 
@@ -113,7 +120,10 @@ def load(name: str, signatures: dict[str, tuple[list, object]]
         if lib is None:
             if not library_path(name).exists():
                 build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load {name}: {e}") from e
             for fn, (argtypes, restype) in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
@@ -136,4 +146,4 @@ def check_launch(rc: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code (a launch
     the driver refused never runs, and no later synchronize reports it)."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise KernelError(f"{what}: CUDA error {rc} at launch")

@@ -20,14 +20,22 @@ preemptions and pool utilisation, and the speculation counters.
         --spec ngram|model:qwen2_0_5b --spec-k 4
     python -m repro_torch.launch.serve --arch qwen2_0_5b --temperature 0.8
     python -m repro_torch.launch.serve --arch qwen2_0_5b --engine dense|wave
+    python -m repro_torch.launch.serve --arch qwen2_0_5b \
+        --trace-out trace.json --metrics-out metrics.json|metrics.prom
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
 an SSM config (mamba2, zamba2) raises ``NotImplementedError``: its
 quantized path is not ported yet; ``--spec`` on it is refused, as the
 reference refuses it.  llava serves its text path (its patch prefix
-enters through ``network.prefill``).  ``--arrival-ms`` submits each
-request after an exponential gap of that mean (the engine steps
-meanwhile; continuous engines only).  ``--engine continuous`` is the
+enters through ``network.prefill``).  The continuous engines serve
+through their async API, as the reference's launcher does: ``start()``,
+one ``submit()`` a request (``--arrival-ms`` sleeps an exponential gap
+of that mean before each), ``get_result()`` for each, ``stop()``.
+``--trace-out`` writes the lifecycle tracer's Chrome trace (open it in
+Perfetto) and ``--metrics-out`` the metrics registry (JSON, or the
+Prometheus text with a ``.prom`` suffix); both print the registry's
+report and are refused on the wave, which is not instrumented.
+``--engine continuous`` is the
 paged pool (default), ``dense`` continuous batching over dense stripes,
 ``wave`` the seed baseline; ``--spec`` needs the paged engine, and the
 policies that reserve pool blocks are refused on ``dense`` by the
@@ -48,6 +56,7 @@ import torch
 from repro_torch import configs as CONFIGS
 from repro_torch.device import resolve_device
 from repro_torch.models import network as N
+from repro_torch.obs import Telemetry, render_report
 from repro_torch.quant.policy import QuantPolicy, quantize_params
 from repro_torch.serving.engine import ContinuousEngine, Request, WaveEngine
 from repro_torch.serving.policy import POLICY_NAMES
@@ -107,6 +116,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature of every request (0 = "
                          "greedy)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run (open "
+                         "in Perfetto / chrome://tracing); enables the "
+                         "lifecycle tracer")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a metrics-registry snapshot (.prom suffix "
+                         "= Prometheus text exposition, else JSON)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -151,6 +167,10 @@ def main(argv=None) -> dict:
     if spec is not None and args.engine != "continuous":
         raise SystemExit("--spec needs the paged engine (KV rollback "
                          "lives in the block pool)")
+    want_telemetry = bool(args.trace_out or args.metrics_out)
+    if want_telemetry and args.engine == "wave":
+        raise SystemExit("--trace-out/--metrics-out need the continuous "
+                         "engine (the wave baseline is uninstrumented)")
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
@@ -171,18 +191,22 @@ def main(argv=None) -> dict:
                                paged=args.engine == "continuous",
                                policy=args.policy, spec=spec,
                                spec_k=args.spec_k, quant_policy=quant_policy,
-                               device=dev)
+                               telemetry=(Telemetry.on() if want_telemetry
+                                          else None), device=dev)
     schedule = getattr(eng, "schedule", None)   # the wave has none
     if schedule is not None:
         schedule.reset()        # count only the run, not construction
     t0 = time.perf_counter()
     if args.engine == "wave":
         results = eng.run(reqs)
-    elif args.arrival_ms > 0:
-        results = _run_arrivals(eng, reqs, rng.exponential(
-            args.arrival_ms / 1e3, len(reqs)).cumsum())
     else:
-        results = eng.run(reqs)
+        eng.start()
+        for r in reqs:
+            if args.arrival_ms > 0:
+                time.sleep(rng.exponential(args.arrival_ms / 1e3))
+            eng.submit(r)
+        results = [eng.get_result(timeout=600) for _ in reqs]
+        eng.stop()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -231,7 +255,7 @@ def main(argv=None) -> dict:
     if not eng.paged:
         print(f"[serve] dense stripes: KV {kv['allocated']} B allocated "
               f"(peak = allocated)")
-        return report
+        return _export(args, eng, report, wall)
     ps = eng.pool.stats()
     report.update(kv_quantized=ps["quantized"],
                   pool_peak_blocks=ps["peak_used"],
@@ -252,24 +276,24 @@ def main(argv=None) -> dict:
               f"{sp['verify_steps']} verify steps, {sp['accepted']}/"
               f"{sp['drafted']} drafts accepted, mean accept length "
               f"{sp['avg_accept_len']:.2f}")
+    return _export(args, eng, report, wall)
+
+
+def _export(args, eng: ContinuousEngine, report: dict, wall: float) -> dict:
+    """The registry's report and the ``--trace-out`` / ``--metrics-out``
+    files, when asked for."""
+    if not (args.trace_out or args.metrics_out):
+        return report
+    print(render_report(eng.metrics, wall_s=wall))
+    if args.trace_out:
+        eng.obs.export_trace(args.trace_out)
+        print(f"[serve] trace -> {args.trace_out} ({len(eng.obs.tracer)} "
+              f"events, {eng.obs.tracer.dropped} dropped)")
+    if args.metrics_out:
+        eng.obs.export_metrics(args.metrics_out)
+        print(f"[serve] metrics -> {args.metrics_out}")
+    report.update(trace_out=args.trace_out, metrics_out=args.metrics_out)
     return report
-
-
-def _run_arrivals(eng: ContinuousEngine, reqs: list[Request],
-                  arrivals: np.ndarray) -> list:
-    """Submit each request when its arrival time (seconds from now) has
-    passed, stepping the engine meanwhile; results in completion order."""
-    t0 = time.perf_counter()
-    out, nxt = [], 0
-    while len(out) < len(reqs):
-        now = time.perf_counter() - t0
-        while nxt < len(reqs) and arrivals[nxt] <= now:
-            eng.submit(reqs[nxt])
-            nxt += 1
-        if eng.step() == 0 and not eng._pending and nxt < len(reqs):
-            time.sleep(max(0.0, arrivals[nxt] - now))
-        out.extend(eng.drain_results())
-    return out
 
 
 if __name__ == "__main__":

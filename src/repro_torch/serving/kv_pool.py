@@ -1,7 +1,7 @@
 """Block-paged KV pool: allocator, block tables, prefix sharing, COW.
 
 Host-side bookkeeping (numpy only) of the paged KV cache -- a copy of
-``repro.serving.kv_pool`` (``from_snapshot`` is a later slice).  Device
+``repro.serving.kv_pool``.  Device
 storage keeps every attention layer's K/V as one pool tensor
 ``(num_blocks, block_size, n_kv_heads, head_dim)``; a slot's logical
 sequence is scattered across pool blocks named by its row of
@@ -83,6 +83,12 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
 
 def _hash_to_json(h: tuple) -> list:
     return [_hash_to_json(x) if isinstance(x, tuple) else int(x) for x in h]
+
+
+def _hash_from_json(v: list) -> tuple:
+    """Inverse of :func:`_hash_to_json` (lists back to nested tuples)."""
+    return tuple(_hash_from_json(x) if isinstance(x, list) else int(x)
+                 for x in v)
 
 
 @dataclasses.dataclass
@@ -481,7 +487,10 @@ class KVPool:
                 "backoffs": self.backoffs}
 
     def snapshot_state(self) -> dict:
-        """JSON-serializable dump of the pool state (audit reproducers)."""
+        """JSON-serializable dump of the pool state: audit reproducers and
+        the engine's warm-restart snapshots.  ``prefix`` keeps the
+        cache's LRU order (front = coldest), so :meth:`from_snapshot`
+        rebuilds its eviction order."""
         return {
             "num_blocks": int(self.num_blocks),
             "block_size": int(self.block_size),
@@ -500,6 +509,29 @@ class KVPool:
             "pending_copies": [[int(s), int(d)]
                                for s, d in self.pending_copies],
         }
+
+    @classmethod
+    def from_snapshot(cls, state: dict) -> "KVPool":
+        """Rebuild a pool from :meth:`snapshot_state` output: the same
+        allocator order, ref counts, tables, prefix cache (LRU order) and
+        pending copies; the telemetry counters start at zero."""
+        pool = cls(int(state["num_blocks"]), int(state["block_size"]),
+                   slots=int(state["slots"]), max_len=int(state["max_len"]),
+                   share_prefixes=bool(state.get("share_prefixes", True)),
+                   quantized=bool(state.get("quantized", False)))
+        for bid in state.get("scale_written", []):
+            pool.scale_written[int(bid)] = True
+        pool._free = collections.deque(int(b) for b in state["free"])
+        pool.ref = np.asarray(state["ref"], np.int32)
+        pool.tables = np.asarray(state["tables"], np.int32)
+        pool.n_slot_blocks = np.asarray(state["n_slot_blocks"], np.int32)
+        pool._prefix = collections.OrderedDict(
+            (_hash_from_json(h), int(b))
+            for h, b in state.get("prefix", []))
+        pool._hash_of = {b: h for h, b in pool._prefix.items()}
+        pool.pending_copies = [(int(s), int(d))
+                               for s, d in state["pending_copies"]]
+        return pool
 
     def audit_violations(self) -> list[str]:
         """Every broken invariant (empty when consistent): ref

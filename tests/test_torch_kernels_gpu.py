@@ -988,3 +988,90 @@ def test_gemm_tiles_entry_point_on_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "(8, 256, 128)" in out and "(256, 512, 128)" in out
     assert "8x64" in out and "128x256" in out and "host time" in out
+
+
+def _serving_requests(vocab, n=4, new=8):
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(3, vocab, int(rng.integers(5, 60))
+                                    ).astype(np.int32), new, eos=-1)
+            for i in range(n)]
+
+
+def test_serve_thread_launch_counts_on_card(cuda):
+    """The serve loop's thread launches as ``run()`` does: K1 once an
+    attention layer a decode step, K2 once a GEMM a step (seven
+    projections a layer and the head), the same fp32 tokens."""
+    cfg = dataclasses.replace(TC.get("qwen2_0_5b").scaled_down(),
+                              gemm_backend="scheduled")
+    params = TN.init(cfg, seed=0, device=cuda)
+    reqs = _serving_requests(cfg.vocab)
+    out = {}
+    for mode in ("run", "thread"):
+        eng = ContinuousEngine(cfg, params, slots=2, max_len=128,
+                               audit=True, device=cuda)
+        torch.cuda.synchronize()
+        TPA.launches.reset()
+        TMP.reset_launches()
+        if mode == "run":
+            res = eng.run(reqs)
+        else:
+            eng.start()
+            for r in reqs:
+                eng.submit(r)
+            res = [eng.get_result(timeout=120) for _ in reqs]
+            eng.stop()
+        torch.cuda.synchronize()
+        assert all(r.status == "ok" for r in res)
+        out[mode] = ({r.rid: r.tokens.tolist() for r in res},
+                     TPA.launches.count / eng.steps,
+                     TMP.launches.count / (eng.steps + eng.chunk_steps))
+    assert out["run"] == out["thread"]
+    assert out["run"][1:] == (cfg.n_layers, 7 * cfg.n_layers + 1)
+
+
+def test_retried_decode_step_on_card(cuda, monkeypatch):
+    """A transient fault before a step and a genuine failure after a
+    decode step's launches both retry to the fault-free tokens; a kernel
+    launch the CUDA driver refuses (``KernelError``) leaves ``step()``."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving.resilience import (FaultPlane, FaultSpec,
+                                                ResilienceConfig)
+    cfg = dataclasses.replace(TC.get("qwen2_0_5b").scaled_down(),
+                              gemm_backend="scheduled")
+    params = TN.init(cfg, seed=0, device=cuda)
+    reqs = _serving_requests(cfg.vocab)
+
+    def engine(**kw):
+        return ContinuousEngine(cfg, params, slots=2, max_len=128,
+                                audit=True, device=cuda, **kw)
+
+    want = {r.rid: r.tokens.tolist() for r in engine().run(reqs)}
+    real, calls = TN.decode_step, {"n": 0}
+
+    def flaky(*a, **k):
+        out = real(*a, **k)
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("mid-step failure")
+        return out
+
+    monkeypatch.setattr(TN, "decode_step", flaky)
+    eng = engine(faults=FaultPlane([FaultSpec("dispatch", at=6)]),
+                 resilience=ResilienceConfig(dispatch_retries=2))
+    res = eng.run(reqs)
+    assert {r.rid: r.tokens.tolist() for r in res} == want
+    assert {r.status for r in res} == {"ok"}
+    assert eng.metrics.value("resilience.retries") == 2
+    monkeypatch.undo()
+
+    def refuse(rc, what):
+        raise _build.KernelError(f"{what}: refused")
+
+    eng = engine()
+    eng.submit(reqs[0])
+    monkeypatch.setattr(_build, "check_launch", refuse)
+    with pytest.raises(_build.KernelError):
+        for _ in range(8):
+            eng.step()
+    assert eng.drain_results() == []
+    assert eng.metrics.value("resilience.quarantined") == 0

@@ -56,6 +56,7 @@ from repro_torch.models import bridge
 from repro_torch.models import network as TN
 from repro_torch.serving.engine import ContinuousEngine, Request
 from repro_torch.serving.policy import POLICY_NAMES
+from repro_torch.serving.resilience import ResilienceConfig
 from repro_torch.serving.spec import ModelDraft
 from _torch_port import reference_params, with_backend
 
@@ -276,7 +277,8 @@ def test_spec_under_pool_pressure_preempts_and_degrades(reference_runs,
     _jcfg, _params, cfg, tp = qwen
     eng = ContinuousEngine(cfg, tp, slots=SLOTS, max_len=SPEC_MAX_LEN,
                            kv_blocks=7, spec="ngram", spec_k=SPEC_K,
-                           spec_degrade=True, audit=True, device="cpu")
+                           resilience=ResilienceConfig(spec_degrade=True),
+                           audit=True, device="cpu")
     res = eng.run(TR.rep_trace(8, cfg.vocab))
     assert _tokens(res) == reference_runs["vanilla"]["tokens"]
     assert eng.metrics.counter("resilience.spec_degrades").value > 0
