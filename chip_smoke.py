@@ -6,7 +6,9 @@
 Phases, in order (each failure is reported and the script exits 1):
 
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-  2. build: every CUDA source of the port, compiled in parallel;
+  2. build: every CUDA source of the port, compiled in parallel (the
+     dispatch profiler's step_cost counts of the two profiled geometries
+     run beside it, on the host);
   3. K1 paged decode against its plain version at qwen2-0.5b's decode
      shapes (B=8, KV=2, G=7, hd=64, bs=16), ragged lengths with 0, 1, a
      block boundary and a full table, NULL-block entries, and one case
@@ -292,8 +294,42 @@ resilience plane) adds, after dense_scaled_down_fp32:
   prefix of them;
 
   serve_cli_path: ``launch/serve.py`` at full width (scheduled) with
-  ``--trace-out`` and ``--metrics-out`` into a temporary directory: the
-  trace valid, the Prometheus text written, K1 and K2 launched.
+  ``--trace-out``, ``--metrics-out`` and ``--profile`` into a temporary
+  directory: the trace valid, the Prometheus text written, K1 and K2
+  launched; then ``python -m repro_torch.launch.trace_report <trace>
+  --validate`` and ``python -m repro_torch.launch.plan_report drift`` on
+  that trace, both returning 0.
+
+The dispatch profiler and the planner add, after serve_cli_path:
+
+  profile_path: full-width qwen2-0.5b, bf16, scheduled, 8 slots, max_len
+  1024, phase 5's requests through ``run()`` under
+  ``Telemetry.on(profile=True)``, right after an unprofiled engine on
+  the same requests.  Gates: the tokens identical; calibration spans of
+  all four dispatches; K1 24 launches a decode step and K2 169 a step
+  while serving (counters zeroed after the profiler's attach); the
+  unprofiled engine's caches, tables, cursors, pool, sampler and
+  schedule statistics bit-identical across an ``attach`` after its run;
+  a calibration fitted from the
+  profiled run's own trace; the planner's replay of that trace giving
+  the engine's ``steps`` and ``chunk_steps``, its construction moving no
+  schedule hit or miss.  Prints each dispatch's mean wall (calibration
+  and serve), modeled cycles, flops and bytes, the fitted
+  ``ns_per_cycle``, ``host_us_per_dispatch`` and ``startup_us``, the
+  TTFT p95 and TPOT drift against the reference's +-30% bound (not
+  gated), and the profiled wall beside the unprofiled one;
+
+  profile_scaled_down_fp32: scaled-down fp32 qwen2 (x4) and mamba2:
+  profiled tokens equal to unprofiled ones, and every state of an
+  engine attached mid-flight bit-identical.
+
+policy_path also runs ``model_preempt`` on
+``WorkloadModel(cfg, geom).step_costs()`` at the overload geometry,
+beside the prior's row, and prints serve_bench's three ``policy_model``
+gates (tokens equal to fifo's, p95 TTFT steps at most slo_preempt's,
+mean pool utilization at least best_fit's).  The time split prints
+this slice: its phases and its cases inside policy_path and
+serve_cli_path.
 
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
@@ -317,8 +353,11 @@ import argparse
 import dataclasses
 import itertools
 import json
+import os
+import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -393,7 +432,7 @@ def main(argv=None) -> int:
     from repro_torch.core import workloads as WL
     from repro_torch.core.dataflow import Dataflow
     from repro_torch.core.pgemm import PGEMM, split_paths
-    from repro_torch.core.precision import INT16, INT32
+    from repro_torch.core.precision import INT16, INT32, precision_for_dtype
     from repro_torch.core.scheduler import GTAConfig, ScheduleCache, explore
     from repro_torch.core.tiling import HOPPER_TILES, KERNEL_TILES
     from repro_torch.kernels import _build
@@ -417,13 +456,19 @@ def main(argv=None) -> int:
     from repro_torch.models.config import BlockKind
     from repro_torch.models import ssm as SSM
     from repro_torch.models.layers import tree_map
-    from repro_torch.obs import Telemetry, validate_chrome_trace
+    from repro_torch.obs import (DISPATCH_NAMES, DispatchProfiler,
+                                 Telemetry, validate_chrome_trace)
+    from repro_torch.planner import (EngineGeometry, WorkloadModel,
+                                     calibration_from_events,
+                                     requests_from_trace)
+    from repro_torch.planner.calibrate import dispatch_spans, drift_rows
+    from repro_torch.planner.model import measured_latencies
     from repro_torch.quant.policy import QuantPolicy, serving_quant_params
     from repro_torch.serving import sampling as SAMPLING
     from repro_torch.serving.engine import (ContinuousEngine, Request,
                                             WaveEngine)
     from repro_torch.serving.kv_pool import KVPool
-    from repro_torch.serving.policy import POLICY_NAMES
+    from repro_torch.serving.policy import POLICY_NAMES, ModelPreemptPolicy
     from repro_torch.serving.resilience import (FaultPlane, FaultSpec,
                                                 ResilienceConfig,
                                                 serve_with_restarts)
@@ -437,7 +482,8 @@ def main(argv=None) -> int:
     #: seconds of each slice's cases inside the earlier phases (K1, K2,
     #: K3 and K5 checks, timing rows), by slice and phase: the families
     #: since qwen1.5 and the dense path
-    added_s: dict = {"families": {}, "dense": {}, "resilience": {}}
+    added_s: dict = {"families": {}, "dense": {}, "resilience": {},
+                     "profile": {}}
 
     def added(phase, t0, slice_="families"):
         got = added_s[slice_]
@@ -455,10 +501,37 @@ def main(argv=None) -> int:
               f"TF32 off (matmul and cuDNN): fp32 products are true fp32")
 
     # -- 2. build ----------------------------------------------------------
+    def warm_step_costs(out):
+        """The dispatch profiler's step_cost counts (fake tensors, host
+        only) at the two geometries this run profiles at full width,
+        memoized by ``dispatch_costs``: computed while nvcc builds."""
+        t0 = time.perf_counter()
+        try:
+            from repro_torch.launch.step_cost import dispatch_costs
+            cfg = dataclasses.replace(CONFIGS.get("qwen2_0_5b"),
+                                      gemm_backend="scheduled")
+            for slots, max_len in ((4, 256), (8, 1024)):
+                dispatch_costs(cfg, slots=slots, max_len=max_len,
+                               block_size=16, prefill_chunk=32, spec_k=4)
+        except Exception as e:  # noqa: BLE001 - re-raised by p_build
+            out["error"] = e
+        out["seconds"] = time.perf_counter() - t0
+
     def p_build():
         t0 = time.perf_counter()
-        logs = _build.build(ptxas_info=True)
+        warm: dict = {}
+        thread = threading.Thread(target=warm_step_costs, args=(warm,))
+        thread.start()
+        try:
+            logs = _build.build(ptxas_info=True)
+        finally:
+            thread.join()
         rep["build_s"] = time.perf_counter() - t0
+        rep["step_cost_warm_s"] = warm["seconds"]
+        print(f"step_cost of the profiled geometries, beside nvcc: "
+              f"{warm['seconds']:.1f} s")
+        if "error" in warm:
+            raise warm["error"]
         rep["build_logs"] = logs
         for name, log in logs.items():
             used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
@@ -2155,14 +2228,18 @@ def main(argv=None) -> int:
 
     # -- 6f. admission policies with preemption at full width ----------------
     def policy_runs(cfg, params, policies):
+        """One overload run a (policy, kv_blocks) or (label, policy,
+        kv_blocks) entry, keyed "<label> @<kv_blocks>"."""
         out = {}
-        for policy, kv_blocks in policies:
+        for entry in policies:
+            label, policy, kv_blocks = (entry if len(entry) == 3
+                                        else (entry[0],) + tuple(entry))
             eng, res, wall, cnt = serve(
                 cfg, params, TRACES.overload_trace(12, cfg.vocab), 4,
                 TRACES.POLICY_MAX_LEN, audit=True, settle=0.01,
                 policy=policy, kv_blocks=kv_blocks)
             ps = eng.pool.stats()
-            out[f"{policy} @{kv_blocks or 'unconstrained'}"] = {
+            out[f"{label} @{kv_blocks or 'unconstrained'}"] = {
                 "tokens": {r.rid: r.tokens.tolist() for r in res},
                 "preemptions": eng.preemptions, "resumes": eng.resumes,
                 "admissions": eng.admissions,
@@ -2177,6 +2254,27 @@ def main(argv=None) -> int:
                 "launches": {k: cnt[k] for k in ("paged_decode", "mpgemm")}}
         return out
 
+    def model_row(cfg):
+        """model_preempt on the planner's step costs at the overload
+        geometry (serve_bench's ``policy_model`` row)."""
+        geom = EngineGeometry(slots=4, max_len=TRACES.POLICY_MAX_LEN,
+                              kv_blocks=TRACES.OVERLOAD_KV_BLOCKS,
+                              precision=precision_for_dtype(
+                                  cfg.compute_dtype, default="FP32").name)
+        costs = WorkloadModel(cfg, geom).step_costs()
+        return costs, ("model_preempt[planner]", ModelPreemptPolicy(
+            costs=costs), TRACES.OVERLOAD_KV_BLOCKS)
+
+    def policy_model_gates(runs, tight):
+        """serve_bench's three gates of the planner-costed row."""
+        m = runs[f"model_preempt[planner] @{tight}"]
+        return {"tokens equal to fifo's": m["tokens"] == runs[
+                    f"fifo @{tight}"]["tokens"],
+                "p95 TTFT steps <= slo_preempt's": m["p95_ttft_steps"]
+                <= runs[f"slo_preempt @{tight}"]["p95_ttft_steps"],
+                "pool util >= best_fit's": m["avg_pool_util"]
+                >= runs[f"best_fit @{tight}"]["avg_pool_util"]}
+
     def p_policy():
         tight = TRACES.OVERLOAD_KV_BLOCKS
         # full width, bf16: the five policies where FIFO's head blocks,
@@ -2187,6 +2285,10 @@ def main(argv=None) -> int:
         runs = policy_runs(cfg, params_full(),
                            [(p, tight) for p in POLICY_NAMES]
                            + [("slo_preempt", 32), ("fifo", None)])
+        t0 = time.perf_counter()
+        costs, row = model_row(cfg)
+        runs.update(policy_runs(cfg, params_full(), [row]))
+        added("policy_path", t0, "profile")
         ref = runs[f"fifo @{tight}"]["tokens"]
         agree = agreement(runs, ref)
         for k, r in runs.items():
@@ -2205,6 +2307,30 @@ def main(argv=None) -> int:
         small = policy_runs(scfg, sparams,
                             [(p, tight) for p in POLICY_NAMES]
                             + [("fifo", None), ("slo_preempt", 32)])
+        t0 = time.perf_counter()
+        scosts, srow = model_row(scfg)
+        small.update(policy_runs(scfg, sparams, [srow]))
+        gates = {"full_width": policy_model_gates(runs, tight),
+                 "scaled_down_fp32": policy_model_gates(small, tight)}
+        prior = runs[f"model_preempt @{tight}"]
+        planned = runs[f"model_preempt[planner] @{tight}"]
+        print(f"[{card}] policy_path model_preempt on WorkloadModel step "
+              f"costs (chunk {costs.chunk_cost:.0f}, decode "
+              f"{costs.decode_cost:.0f} cycles: ratio "
+              f"{costs.chunk_cost / costs.decode_cost:.2f}; the prior's "
+              f"3.00): p95 TTFT {planned['p95_ttft_steps']} dispatches "
+              f"(prior {prior['p95_ttft_steps']}), pool util "
+              f"{planned['avg_pool_util']:.4f} (prior "
+              f"{prior['avg_pool_util']:.4f}), {planned['preemptions']} "
+              f"preemptions; scaled-down ratio "
+              f"{scosts.chunk_cost / scosts.decode_cost:.2f}")
+        print(f"policy_path serve_bench policy_model gates (reported, not "
+              f"gated here): {gates}")
+        added("policy_path", t0, "profile")
+        rep["policy_model"] = {
+            "step_costs": dataclasses.asdict(costs),
+            "step_costs_scaled_down": dataclasses.asdict(scosts),
+            "gates": gates}
         sref = small[f"fifo @{tight}"]["tokens"]
         rep["policy_path"] = {"full_width": runs, "agreement": agree,
                               "divergences": parted,
@@ -3274,11 +3400,31 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"resilience_scaled_down_fp32 failed: {bad}")
 
+    def report_clis(trace, geom):
+        """``python -m repro_torch.launch.trace_report <trace> --validate``
+        and ``plan_report drift`` on ``trace``, run side by side: (return
+        codes, last lines of their output)."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmds = {"trace_report": ["-m", "repro_torch.launch.trace_report",
+                                 trace, "--validate"],
+                "plan_report": ["-m", "repro_torch.launch.plan_report",
+                                "drift", trace, *geom]}
+        procs = {k: subprocess.Popen([sys.executable, *c], cwd=ROOT,
+                                     env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                 for k, c in cmds.items()}
+        out = {}
+        for k, proc in procs.items():
+            text, _ = proc.communicate(timeout=300)
+            out[k] = (proc.returncode, text.strip().splitlines()[-4:])
+        return out
+
     def p_serve_cli():
         """``launch/serve.py`` at full width (scheduled) with
-        ``--trace-out`` and ``--metrics-out`` into a temporary directory:
-        the continuous engine through its async API, the trace valid, the
-        Prometheus text written, K1 and K2 launched."""
+        ``--trace-out``, ``--metrics-out`` and ``--profile`` into a
+        temporary directory: the continuous engine through its async API,
+        the trace valid, the Prometheus text written, K1 and K2 launched;
+        then the two report CLIs on the trace."""
         with tempfile.TemporaryDirectory() as tmp:
             trace, prom = f"{tmp}/trace.json", f"{tmp}/metrics.prom"
             torch.cuda.synchronize()
@@ -3286,25 +3432,249 @@ def main(argv=None) -> int:
             r = SERVE.main(["--arch", "qwen2_0_5b", "--gemm-backend",
                             "scheduled", "--requests", "8", "--slots", "4",
                             "--trace-out", trace, "--metrics-out", prom,
-                            "--seed", str(args.seed)])
+                            "--profile", "--seed", str(args.seed)])
             torch.cuda.synchronize()
             cnt = launch_counts()
             with open(trace) as f:
                 errs = validate_chrome_trace(json.load(f))
             with open(prom) as f:
                 text = f.read()
+            t0 = time.perf_counter()
+            clis = report_clis(trace, ["--arch", "qwen2_0_5b", "--slots",
+                                       "4", "--max-len", "256",
+                                       "--precision", "BP16"])
+            reports_s = time.perf_counter() - t0
+            added("serve_cli_path", t0, "profile")
+            # the engine's construction (the profiler's step_cost count
+            # and calibration inside it) counts to this slice too
+            added_s["profile"]["serve_cli_path"] += r["build_s"]
         out = {"ok": r["ok"], "requests": r["requests"],
                "tok_per_s": r["tok_per_s"], "trace_errors": errs,
                "prometheus_lines": len(text.splitlines()),
+               "profile_spans": r.get("profile_spans", 0),
+               "report_clis": clis, "engine_build_s": r["build_s"],
+               "reports_s": reports_s,
                "launches": {k: cnt[k] for k in ("paged_decode", "mpgemm")}}
         rep["serve_cli"] = out
-        print(f"[{card}] launch/serve.py --trace-out --metrics-out: "
-              f"{out['ok']}/{out['requests']} ok, {r['tok_per_s']:.1f} "
-              f"tok/s, trace valid {not errs}, {out['prometheus_lines']} "
-              f"Prometheus lines, launches {out['launches']}")
+        print(f"[{card}] launch/serve.py --trace-out --metrics-out "
+              f"--profile: {out['ok']}/{out['requests']} ok, "
+              f"{r['tok_per_s']:.1f} tok/s, trace valid {not errs}, "
+              f"{out['prometheus_lines']} Prometheus lines, "
+              f"{out['profile_spans']} dispatch spans, launches "
+              f"{out['launches']}; engine construction (with the "
+              f"profiler's attach) {r['build_s']:.2f} s, the two report "
+              f"CLIs {reports_s:.2f} s")
+        for k, (rc, tail) in clis.items():
+            print(f"  python -m repro_torch.launch.{k}: rc {rc}; "
+                  + " | ".join(tail))
         if (errs or out["ok"] != 8 or "engine_steps" not in text
-                or not cnt["paged_decode"] or not cnt["mpgemm"]):
+                or not cnt["paged_decode"] or not cnt["mpgemm"]
+                or not out["profile_spans"]
+                or any(rc for rc, _ in clis.values())):
             raise AssertionError(f"serve_cli_path failed: {out}")
+
+    # -- the dispatch profiler and the planner -------------------------------
+    def engine_state(eng):
+        """Everything a profiler attach must leave as it was: every cache
+        leaf, the block table, cursors, pool, sampler and the schedule
+        statistics (hits, misses, per key, the applied log)."""
+        torch.cuda.synchronize()
+        leaves = []
+        tree_map(lambda _p, a: leaves.append(a.clone()), eng.caches)
+        st = eng.schedule.stats()
+        return {"caches": leaves, "bt": eng._bt.clone(),
+                "pos": eng._pos.tolist(), "pool": eng.pool.snapshot_state(),
+                "generator": eng.generator.get_state(),
+                "schedule": (st["hits"], st["misses"], st["applied"],
+                             eng.schedule.key_stats()),
+                "counters": (eng.steps, eng.chunk_steps)}
+
+    def attach_unchanged(eng):
+        """Attach a profiler to ``eng`` and report which of its states
+        moved (an empty list: bit-identical)."""
+        before = engine_state(eng)
+        prof = DispatchProfiler(reps=1)
+        eng.obs.profiler = prof
+        prof.attach(eng)
+        after = engine_state(eng)
+        moved = [i for i, (a, b) in enumerate(zip(before["caches"],
+                                                  after["caches"]))
+                 if not torch.equal(a, b)]
+        moved = [f"cache leaf {i}" for i in moved]
+        for k in ("bt", "generator"):
+            if not torch.equal(before[k], after[k]):
+                moved.append(k)
+        moved += [k for k in ("pos", "pool", "schedule", "counters")
+                  if before[k] != after[k]]
+        return moved, prof
+
+    def p_profile_path():
+        cfg = dataclasses.replace(full, gemm_backend="scheduled")
+        params = params_full()
+        reqs = requests(np.random.default_rng(args.seed), 8, 64, 513, 32,
+                        full.vocab)                     # phase 5's set
+        k2_step = 7 * full.n_layers + 1
+        # the unprofiled engine just before the profiled one: host walls
+        # drift over a run, so the two are compared back to back
+        eng0, res0, wall0, cnt0 = serve(cfg, params, reqs, 8, 1024,
+                                        audit=False)
+        tok0 = {r.rid: r.tokens.tolist() for r in res0}
+        # a profiler attached to it after its run (pool, cursors and the
+        # schedule statistics written): nothing may move
+        moved, _ = attach_unchanged(eng0)
+        t0 = time.perf_counter()
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               device=dev,
+                               telemetry=Telemetry.on(profile=True))
+        attach_s = time.perf_counter() - t0
+        res, wall, cnt = counted_run(eng, reqs)
+        tok = {r.rid: r.tokens.tolist() for r in res}
+        prof = eng.obs.profiler
+        events = eng.obs.tracer.chrome_trace()["traceEvents"]
+        trace_errs = validate_chrome_trace({"traceEvents": events})
+        cal = calibration_from_events(events, meta={
+            "source": "chip_smoke profile_path", "card": card})
+        groups = dispatch_spans(events)
+        specs = requests_from_trace(events)
+        meas = measured_latencies(events)
+        geom = EngineGeometry.from_engine(eng)
+        st0 = eng.schedule.stats()
+        keys0 = eng.schedule.key_stats()
+        model = WorkloadModel(cfg, geom, schedule=eng.schedule)
+        plan = model.simulate(specs, calibration=cal)
+        st1 = eng.schedule.stats()
+        keys1 = eng.schedule.key_stats()
+        ttft = [meas[s.rid]["ttft_us"] for s in specs]
+        tpot = [meas[s.rid]["tpot_us"] for s in specs
+                if meas[s.rid]["tpot_us"]]
+        p95, tpot_m = float(np.percentile(ttft, 95)), float(np.mean(tpot))
+        drift = {"bound": 0.30,
+                 "ttft_p95_modeled_us": plan.p95_ttft_us(),
+                 "ttft_p95_measured_us": p95,
+                 "ttft_p95_drift": plan.p95_ttft_us() / p95 - 1.0,
+                 "tpot_modeled_us": plan.mean_tpot_us(),
+                 "tpot_measured_us": tpot_m,
+                 "tpot_drift": plan.mean_tpot_us() / tpot_m - 1.0}
+        drift["ttft_p95_within"] = abs(drift["ttft_p95_drift"]) <= 0.30
+        drift["tpot_within"] = abs(drift["tpot_drift"]) <= 0.30
+        rows = {}
+        for r in drift_rows(events):
+            d = groups[r["name"]]
+            rows[r["name"]] = {
+                "serve_mean_us": (float(np.mean(d["serve"]))
+                                  if d["serve"] else None),
+                "n_serve": len(d["serve"]),
+                "calibration_mean_us": r["cal_us"], "n_cal": r["n_cal"],
+                "modeled_cycles": r["cycles"], "flops": r["flops"],
+                "bytes": r["bytes"]}
+            print(f"[{card}] profile_path {r['name']}: calibration "
+                  f"{r['cal_us']:.1f} us (x{r['n_cal']}), serve "
+                  + (f"{rows[r['name']]['serve_mean_us']:.1f} us "
+                     f"(x{len(d['serve'])})" if d["serve"] else "none")
+                  + f", modeled {r['cycles']:.0f} cycles, "
+                  f"{r['flops']:.4g} flops, {r['bytes']:.4g} bytes")
+        out = {"tokens_equal": tok == tok0, "moved_by_attach": moved,
+               "attach_s": attach_s, "wall_s": wall,
+               "unprofiled_wall_s": wall0,
+               "launches": {k: cnt[k] for k in ("paged_decode", "mpgemm")},
+               "per_step": per_step(cnt, eng),
+               "steps": [eng.steps, eng.chunk_steps],
+               "plan_steps": [plan.steps, plan.chunk_steps],
+               "schedule_moved_by_planning": (
+                   (st0["hits"], st0["misses"], keys0)
+                   != (st1["hits"], st1["misses"], keys1)),
+               "calibration": cal.to_json(), "drift": drift,
+               "dispatches": rows, "trace_errors": trace_errs,
+               "spans": len(prof.spans)}
+        rep["profile_path"] = out
+        print(f"[{card}] profile_path: profiled {wall:.2f} s wall against "
+              f"unprofiled {wall0:.2f} s ({100 * (wall / wall0 - 1):+.1f}%),"
+              f" attach (step_cost and calibration) {attach_s:.2f} s; "
+              f"ns_per_cycle {cal.ns_per_cycle:.6g}, host_us_per_dispatch "
+              f"{cal.host_us_per_dispatch:.6g}, startup_us "
+              f"{cal.startup_us:.6g}; steps {out['steps']} planned "
+              f"{out['plan_steps']}; K1 {out['per_step'][0]:.6g} a decode "
+              f"step, K2 {out['per_step'][1]:.6g} a step")
+        print(f"[{card}] profile_path planner drift (reported, not gated; "
+              f"bound +-30%): TTFT p95 modeled "
+              f"{drift['ttft_p95_modeled_us']:.1f} us, measured "
+              f"{p95:.1f} us ({100 * drift['ttft_p95_drift']:+.2f}%); TPOT "
+              f"modeled {drift['tpot_modeled_us']:.1f} us, measured "
+              f"{tpot_m:.1f} us ({100 * drift['tpot_drift']:+.2f}%)")
+        cal_names = {s["name"] for s in prof.spans
+                     if s["kind"] == "calibration"}
+        checks = {
+            "tokens identical": out["tokens_equal"],
+            "all 8 ok": sum(r.status == "ok" for r in res) == 8,
+            "calibration spans of all four dispatches":
+                cal_names == set(DISPATCH_NAMES),
+            "serve spans": all(groups[n]["serve"] for n in
+                               ("decode_step", "prefill_paged_chunk")),
+            "K1 24 a decode step": cnt["paged_decode"]
+                == full.n_layers * eng.steps,
+            "K2 169 a step": cnt["mpgemm"]
+                == k2_step * (eng.steps + eng.chunk_steps),
+            "unprofiled run's launches alike": cnt0["paged_decode"]
+                == full.n_layers * eng0.steps and cnt0["mpgemm"]
+                == k2_step * (eng0.steps + eng0.chunk_steps),
+            "caches bit-identical across attach": not moved,
+            "calibration fitted": set(cal.cycles) == set(DISPATCH_NAMES),
+            "replay steps": plan.steps == eng.steps,
+            "replay chunk steps": plan.chunk_steps == eng.chunk_steps,
+            "planning moved no schedule statistic":
+                not out["schedule_moved_by_planning"],
+            "trace valid": not trace_errs}
+        out["checks"] = checks
+        print(f"profile_path checks: {checks}")
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            raise AssertionError(f"profile_path checks failed: {bad}; "
+                                 f"moved {moved}")
+
+    def p_profile_small():
+        scfg, sparams, _ = small_fp32()
+        mcfg = CONFIGS.get("mamba2_2_7b").scaled_down()
+        models = {"qwen2 x4": (scfg, sparams),
+                  "mamba2": (mcfg, N.init(mcfg, args.seed, dev))}
+        out, bad = {}, []
+        for name, (cfg, params) in models.items():
+            reqs = requests(np.random.default_rng(3), 4, 20, 60, 12,
+                            cfg.vocab)
+            base = {r.rid: r.tokens.tolist() for r in ContinuousEngine(
+                cfg, params, slots=4, max_len=128, device=dev).run(reqs)}
+            eng = ContinuousEngine(cfg, params, slots=4, max_len=128,
+                                   device=dev,
+                                   telemetry=Telemetry.on(profile=True))
+            prof_tok = {r.rid: r.tokens.tolist() for r in eng.run(reqs)}
+            # attach mid-flight: prefill done, decode under way
+            eng = ContinuousEngine(cfg, params, slots=4, max_len=128,
+                                   device=dev, telemetry=Telemetry.on())
+            for r in reqs:
+                eng.submit(r)
+            for _ in range(4):
+                eng.step()
+            moved, prof = attach_unchanged(eng)
+            mid = {}
+            while len(mid) < len(reqs):
+                eng.step()
+                mid.update({r.rid: r.tokens.tolist()
+                            for r in eng.drain_results()})
+            r = {"profiled_tokens_equal": prof_tok == base,
+                 "mid_flight_tokens_equal": mid == base,
+                 "moved_by_attach": moved,
+                 "distinct_tokens": len({t for v in base.values()
+                                         for t in v}),
+                 "calibration_spans": sum(s["kind"] == "calibration"
+                                          for s in prof.spans)}
+            out[name] = r
+            print(f"[{card}] profile_scaled_down_fp32 {name}: {r}")
+            if (not r["profiled_tokens_equal"]
+                    or not r["mid_flight_tokens_equal"] or moved
+                    or r["distinct_tokens"] < 4):
+                bad.append(name)
+        rep["profile_small"] = out
+        if bad:
+            raise AssertionError(f"profile_scaled_down_fp32 failed: {bad}")
 
     # -- 7. timing -----------------------------------------------------------
     timing: dict = {}
@@ -3919,8 +4289,10 @@ def main(argv=None) -> int:
                          ("restart_path", p_restart),
                          ("resilience_scaled_down_fp32", p_resilience_small),
                          ("serve_cli_path", p_serve_cli))
-    phases += family_phases + dense_phases + resilience_phases + (
-        ("timing", p_timing), ("step_profile", p_profile))
+    profile_phases = (("profile_path", p_profile_path),
+                      ("profile_scaled_down_fp32", p_profile_small))
+    phases += family_phases + dense_phases + resilience_phases + \
+        profile_phases + (("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
         if name != "device" and "build" in sm.failures:
@@ -3934,7 +4306,8 @@ def main(argv=None) -> int:
     # path (dense_path, patches_path, dense_scaled_down_fp32)
     slices = {"families": {"families_path"} | {n for n, _ in family_phases},
               "dense": {n for n, _ in dense_phases},
-              "resilience": {n for n, _ in resilience_phases}}
+              "resilience": {n for n, _ in resilience_phases},
+              "profile": {n for n, _ in profile_phases}}
     secs = {n: v["seconds"] for n, v in rep["phases"].items()}
     rep["time_split"] = {}
     for sl, names in slices.items():

@@ -136,6 +136,8 @@ class ScheduleCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        #: per-key [hits, misses]: which shape paid the exploration
+        self._key_stats: dict[GemmKey, list[int]] = {}
         #: bounded tail of (key, CachedChoice) kernel applications
         self.applied: collections.deque[tuple[GemmKey, CachedChoice]] = (
             collections.deque(maxlen=1024))
@@ -172,21 +174,41 @@ class ScheduleCache:
             hit = self._entries.get(key)
             if hit is not None:
                 self.hits += 1
+                self._key_stats.setdefault(key, [0, 0])[0] += 1
                 self._m_hits.inc()
                 return hit
-        op = PGEMM("serve", M=key[0], N=key[1], K=key[2],
-                   precision=BY_NAME[key[3]])
-        choice = explore(op, self.config, self.realizable_k_folds(K))
-        sched = choice.best.schedule
-        entry = CachedChoice(dataflow=sched.dataflow, array=sched.array,
-                             k_fold=sched.k_fold, direction=sched.direction,
-                             cycles=choice.best.cycles,
-                             traffic_bytes=choice.best.traffic_bytes)
+        entry = self._explore(key, "serve")
         with self._lock:
             self.misses += 1
+            self._key_stats.setdefault(key, [0, 0])[1] += 1
             self._m_misses.inc()
             self._entries.setdefault(key, entry)
             return self._entries[key]
+
+    def modeled_cycles(self, M: int, N: int, K: int,
+                       precision: Precision | str) -> CachedChoice:
+        """The entry ``resolve`` would return, WITHOUT moving the
+        aggregate or per-key hit/miss statistics: the planner's read
+        path.  An unseen shape is explored and memoized once."""
+        key = self.key_of(M, N, K, precision)
+        with self._lock:
+            hit = self._entries.get(key)
+        if hit is not None:
+            return hit
+        entry = self._explore(key, "plan")
+        with self._lock:
+            self._entries.setdefault(key, entry)
+            return self._entries[key]
+
+    def _explore(self, key: GemmKey, name: str) -> CachedChoice:
+        op = PGEMM(name, M=key[0], N=key[1], K=key[2],
+                   precision=BY_NAME[key[3]])
+        choice = explore(op, self.config, self.realizable_k_folds(key[2]))
+        sched = choice.best.schedule
+        return CachedChoice(dataflow=sched.dataflow, array=sched.array,
+                            k_fold=sched.k_fold, direction=sched.direction,
+                            cycles=choice.best.cycles,
+                            traffic_bytes=choice.best.traffic_bytes)
 
     def insert(self, M: int, N: int, K: int, precision: Precision | str,
                choice: CachedChoice) -> None:
@@ -211,18 +233,44 @@ class ScheduleCache:
             self.applied_total += 1
             self._m_applied.inc()
 
+    def __len__(self) -> int:
+        return len(self._entries)
+
     def stats(self) -> dict[str, int]:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
                     "entries": len(self._entries),
                     "applied": self.applied_total}
 
+    def key_stats(self) -> dict[GemmKey, dict[str, int]]:
+        """Per-shape hit/miss breakdown."""
+        with self._lock:
+            return {k: {"hits": v[0], "misses": v[1]}
+                    for k, v in self._key_stats.items()}
+
     def reset(self) -> None:
-        """Zero the hit/miss counters without dropping entries or the
-        applied log (call after warmup; a later miss is a new shape)."""
+        """Zero the hit/miss counters, aggregate and per key, without
+        dropping entries or the applied log (call after warmup; a later
+        miss is a new shape)."""
         with self._lock:
             self.hits = 0
             self.misses = 0
+            self._key_stats.clear()
+
+    def fork(self) -> ScheduleCache:
+        """A cache holding this one's entries, with fresh counters and an
+        empty applied log (what a pricing run resolves through, so this
+        cache's statistics stay as they are)."""
+        out = ScheduleCache(self.config, self.k_folds)
+        with self._lock:
+            out._entries = dict(self._entries)
+        return out
+
+    def summary(self) -> list[tuple[GemmKey, CachedChoice]]:
+        """Entries sorted by modeled cycles, heaviest first."""
+        with self._lock:
+            return sorted(self._entries.items(),
+                          key=lambda kv: -kv[1].cycles)
 
 
 # ---------------------------------------------------------------------------

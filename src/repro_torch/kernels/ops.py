@@ -24,6 +24,8 @@ schedule store, per config.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import torch
@@ -220,6 +222,11 @@ def _backend_for_key(key) -> GemmBackend:
     return GemmBackend()
 
 
+#: config -> backend while :func:`private_backends` is active
+_PRIVATE: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "private_backends", default=None)
+
+
 def backend_for(cfg) -> GemmBackend | None:
     """The process-wide backend for a model config, or None when the
     config keeps projections on ``torch.matmul`` (``gemm_backend !=
@@ -227,4 +234,23 @@ def backend_for(cfg) -> GemmBackend | None:
     same model shares one schedule store."""
     if cfg.gemm_backend != "scheduled":
         return None
-    return _backend_for_key(cfg)
+    shared = _backend_for_key(cfg)
+    private = _PRIVATE.get()
+    if private is None:
+        return shared
+    if cfg not in private:
+        private[cfg] = GemmBackend(shared.schedule.fork())
+    return private[cfg]
+
+
+@contextlib.contextmanager
+def private_backends():
+    """Inside, :func:`backend_for` hands out backends of their own whose
+    schedule caches start as forks of the shared ones: a pricing run
+    (``launch.step_cost``) resolves and logs there, and the shared
+    caches' counters and applied logs do not move."""
+    token = _PRIVATE.set({})
+    try:
+        yield
+    finally:
+        _PRIVATE.reset(token)

@@ -22,6 +22,11 @@ preemptions and pool utilisation, and the speculation counters.
     python -m repro_torch.launch.serve --arch qwen2_0_5b --engine dense|wave
     python -m repro_torch.launch.serve --arch qwen2_0_5b \
         --trace-out trace.json --metrics-out metrics.json|metrics.prom
+    python -m repro_torch.launch.serve --arch qwen2_0_5b --profile \
+        --trace-out trace.json
+    python -m repro_torch.launch.trace_report trace.json --validate
+    python -m repro_torch.launch.plan_report drift trace.json \
+        --arch qwen2_0_5b --slots 4 --max-len 256
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
 an SSM config (mamba2, zamba2) raises ``NotImplementedError``: its
@@ -35,6 +40,10 @@ of that mean before each), ``get_result()`` for each, ``stop()``.
 Perfetto) and ``--metrics-out`` the metrics registry (JSON, or the
 Prometheus text with a ``.prom`` suffix); both print the registry's
 report and are refused on the wave, which is not instrumented.
+``--profile`` adds the dispatch profiler (``obs.profile``: a sync after
+every step dispatch, a calibration pass at construction, ``dispatch``
+spans in the trace) and is refused on the dense engine and the wave;
+``launch.trace_report`` and ``launch.plan_report`` read its trace.
 ``--engine continuous`` is the
 paged pool (default), ``dense`` continuous batching over dense stripes,
 ``wave`` the seed baseline; ``--spec`` needs the paged engine, and the
@@ -123,6 +132,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write a metrics-registry snapshot (.prom suffix "
                          "= Prometheus text exposition, else JSON)")
+    ap.add_argument("--profile", action="store_true",
+                    help="wrap the four hot dispatches with synced timing "
+                         "and modeled-cost cross-checks (see "
+                         "repro_torch.launch.trace_report); implies "
+                         "tracing")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -167,10 +181,15 @@ def main(argv=None) -> dict:
     if spec is not None and args.engine != "continuous":
         raise SystemExit("--spec needs the paged engine (KV rollback "
                          "lives in the block pool)")
-    want_telemetry = bool(args.trace_out or args.metrics_out)
+    want_telemetry = bool(args.trace_out or args.metrics_out
+                          or args.profile)
     if want_telemetry and args.engine == "wave":
-        raise SystemExit("--trace-out/--metrics-out need the continuous "
-                         "engine (the wave baseline is uninstrumented)")
+        raise SystemExit("--trace-out/--metrics-out/--profile need the "
+                         "continuous engine (the wave baseline is "
+                         "uninstrumented)")
+    if args.profile and args.engine == "dense":
+        raise SystemExit("--profile wraps the paged dispatches: use the "
+                         "continuous (paged) engine")
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
@@ -182,6 +201,7 @@ def main(argv=None) -> dict:
                     temperature=args.temperature,
                     ttft_slo=args.ttft_slo or None)
             for i in range(args.requests)]
+    t_build = time.perf_counter()
     if args.engine == "wave":
         eng = WaveEngine(cfg, params, slots=args.slots,
                          max_len=args.max_len, seed=args.seed, device=dev)
@@ -191,8 +211,12 @@ def main(argv=None) -> dict:
                                paged=args.engine == "continuous",
                                policy=args.policy, spec=spec,
                                spec_k=args.spec_k, quant_policy=quant_policy,
-                               telemetry=(Telemetry.on() if want_telemetry
-                                          else None), device=dev)
+                               telemetry=(Telemetry.on(profile=args.profile)
+                                          if want_telemetry else None),
+                               device=dev)
+    # construction: the schedule pre-resolve, and under --profile the
+    # profiler's step_cost count and calibration pass
+    build_s = time.perf_counter() - t_build
     schedule = getattr(eng, "schedule", None)   # the wave has none
     if schedule is not None:
         schedule.reset()        # count only the run, not construction
@@ -226,7 +250,8 @@ def main(argv=None) -> dict:
               "tpot_p50_ms": _pct(tpot, 50) * 1e3,
               "latency_p50_ms": _pct(lats, 50) * 1e3,
               "latency_p99_ms": _pct(lats, 99) * 1e3,
-              "decode_steps": eng.steps, "quant": bool(args.quant)}
+              "decode_steps": eng.steps, "quant": bool(args.quant),
+              "build_s": build_s}
     if args.quant:
         kv_kind = ("int8 KV blocks" if cfg.quant_kv
                    and args.engine == "continuous" else "fp KV")
@@ -282,9 +307,15 @@ def main(argv=None) -> dict:
 def _export(args, eng: ContinuousEngine, report: dict, wall: float) -> dict:
     """The registry's report and the ``--trace-out`` / ``--metrics-out``
     files, when asked for."""
-    if not (args.trace_out or args.metrics_out):
+    if not (args.trace_out or args.metrics_out or args.profile):
         return report
     print(render_report(eng.metrics, wall_s=wall))
+    if eng.obs.profiler is not None:
+        spans = eng.obs.profiler.spans
+        report["profile_spans"] = len(spans)
+        print(f"[serve] profiler: {len(spans)} dispatch spans "
+              f"({sum(s['kind'] == 'calibration' for s in spans)} "
+              f"calibration)")
     if args.trace_out:
         eng.obs.export_trace(args.trace_out)
         print(f"[serve] trace -> {args.trace_out} ({len(eng.obs.tracer)} "

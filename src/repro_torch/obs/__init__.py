@@ -1,5 +1,5 @@
-"""Telemetry of the serving stack: the metrics registry and the lifecycle
-tracer (a port of ``repro.obs``).
+"""Telemetry of the serving stack: the metrics registry, the lifecycle
+tracer and the dispatch profiler (a port of ``repro.obs``).
 
 One :class:`Telemetry` bundle threads through the engine
 (``ContinuousEngine(telemetry=...)``):
@@ -11,13 +11,13 @@ One :class:`Telemetry` bundle threads through the engine
   * ``tracer``: a :class:`~repro_torch.obs.events.Tracer`, disabled by
     default (``Telemetry.off()``): the ring records nothing and the hot
     paths skip packing an event behind ``tracer.enabled``.
-  * ``profiler``: always ``None`` here.  The reference's dispatch
-    profiler (``repro.obs.profile``) is not ported yet (ROADMAP.md,
-    Queue 1 item 5b).
+  * ``profiler``: an optional
+    :class:`~repro_torch.obs.profile.DispatchProfiler`, ``None`` by
+    default (it syncs after every dispatch, so it is opt-in).
 
-``Telemetry.on()`` enables tracing; the exporters write the Chrome trace
-and the metrics snapshot wherever ``--trace-out`` / ``--metrics-out``
-point.
+``Telemetry.on()`` enables tracing (``profile=True`` adds the profiler);
+the exporters write the Chrome trace and the metrics snapshot wherever
+``--trace-out`` / ``--metrics-out`` point.
 """
 
 from __future__ import annotations
@@ -28,11 +28,13 @@ from repro_torch.obs.events import Event, Tracer, validate_chrome_trace
 from repro_torch.obs.metrics import (NULL_METRIC, NULL_REGISTRY, Counter,
                                      Gauge, Histogram, MetricsRegistry,
                                      Series)
+from repro_torch.obs.profile import DISPATCH_NAMES, DispatchProfiler
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Series", "MetricsRegistry",
     "NULL_METRIC", "NULL_REGISTRY", "Event", "Tracer",
-    "validate_chrome_trace", "Telemetry", "render_report",
+    "validate_chrome_trace", "DispatchProfiler", "DISPATCH_NAMES",
+    "Telemetry", "render_report",
 ]
 
 
@@ -42,8 +44,7 @@ class Telemetry:
 
     metrics: MetricsRegistry = None  # type: ignore[assignment]
     tracer: Tracer = None            # type: ignore[assignment]
-    #: the dispatch profiler's place; always None (ROADMAP item 5b)
-    profiler: None = None
+    profiler: DispatchProfiler | None = None
 
     def __post_init__(self):
         if self.metrics is None:
@@ -53,19 +54,19 @@ class Telemetry:
 
     @classmethod
     def off(cls) -> "Telemetry":
-        """Engine default: registry-backed counters, no tracing ring."""
+        """Engine default: registry-backed counters, no tracing ring, no
+        profiler."""
         return cls()
 
     @classmethod
-    def on(cls, *, profile: bool = False,
-           capacity: int = 65536) -> "Telemetry":
-        """Tracing and metrics enabled.  ``profile=True`` asks for the
-        dispatch profiler, which is not ported yet."""
-        if profile:
-            raise NotImplementedError(
-                "the dispatch profiler (repro.obs.profile) is not ported "
-                "yet: ROADMAP.md, Queue 1 item 5b")
-        return cls(tracer=Tracer(capacity=capacity, enabled=True))
+    def on(cls, *, profile: bool = False, capacity: int = 65536,
+           reps: int = 3) -> "Telemetry":
+        """Tracing and metrics enabled; ``profile=True`` adds the
+        dispatch profiler (a sync after every dispatch, ``reps`` timed
+        calibration calls of each)."""
+        return cls(tracer=Tracer(capacity=capacity, enabled=True),
+                   profiler=DispatchProfiler(reps=reps) if profile
+                   else None)
 
     # -- exporters ------------------------------------------------------------
 

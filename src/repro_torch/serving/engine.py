@@ -101,6 +101,11 @@ or ``failed`` (``Result.error`` classifies the failure):
   * **Warm restart.**  ``snapshot()`` records every request in flight;
     ``restore`` on a fresh engine re-admits them through the prefix
     cache (``resilience.serve_with_restarts`` drives it).
+  * **Dispatch profiler** (``telemetry=Telemetry.on(profile=True)``,
+    paged engines): the paged step's three dispatches (``_fns``: the
+    network call through the token readback) are wrapped with wall-clock
+    timing and a calibration pass times all four drift-table dispatches
+    at construction (``obs.profile``).
   * **Telemetry** (``telemetry=Telemetry.on()``): lifecycle events in
     the tracer's ring at the reference's points (host ``perf_counter``
     times; a decode, verify or chunk span closes after its token
@@ -483,6 +488,42 @@ class ContinuousEngine:
             L = self.spec_k + 1
             self._register_gemms(slots * L, slots * L)
             self.spec.bind(self)
+        #: the paged step's three dispatches (:meth:`_engine_fns`); the
+        #: dispatch profiler wraps them
+        self._fns = self._engine_fns()
+        if self.obs.profiler is not None:
+            # times the hot dispatches (a sync each) and runs the
+            # calibration pass over all four drift-table dispatches
+            self.obs.profiler.attach(self)
+
+    def _engine_fns(self) -> dict[str, Any]:
+        """The paged step's dispatches, each from its inputs to the
+        tokens on the host, as the reference's jitted programs run:
+        ``decode_sample_paged`` and ``prefill_chunk`` (the network call,
+        the head and the sampling, ``_pick``) and ``verify_chunk`` (the
+        network call and the argmax).  Each returns (tokens (numpy),
+        caches)."""
+        cfg = self.cfg
+
+        def decode_sample_paged(params, toks, caches, pos, bt, adv, temps):
+            logits, caches = N.decode_step(params, cfg, toks, caches, pos,
+                                           bt, adv)
+            return self._pick(logits, temps), caches
+
+        def prefill_chunk(params, toks, caches, slot_ids, bt, lens,
+                          last_idx, temps):
+            logits, caches = N.prefill_paged_chunk(
+                params, cfg, toks, caches, slot_ids, bt, lens, last_idx)
+            return self._pick(logits, temps), caches
+
+        def verify_chunk(params, toks, caches, slot_ids, bt, lens):
+            logits, caches = N.verify_paged_chunk(params, cfg, toks, caches,
+                                                  slot_ids, bt, lens)
+            return logits.argmax(dim=-1).cpu().numpy(), caches
+
+        return {"decode_sample_paged": decode_sample_paged,
+                "prefill_chunk": prefill_chunk,
+                "verify_chunk": verify_chunk}
 
     # -- counters --------------------------------------------------------------
 
@@ -1323,14 +1364,12 @@ class ContinuousEngine:
         self._register_gemms(self.slots * L, self.slots)
         t0 = time.perf_counter()
         last_idx = np.maximum(lens - 1, 0)
-        logits, caches = N.prefill_paged_chunk(
-            self.params, self.cfg, self._tensor(toks), self.caches,
-            self._slot_ids, self._bt, self._tensor(lens),
-            self._tensor(last_idx))
+        tok_np, caches = self._fns["prefill_chunk"](
+            self.params, self._tensor(toks), self.caches, self._slot_ids,
+            self._bt, self._tensor(lens), self._tensor(last_idx), temps)
         if self.spec is not None:
             # the draft prefills the same chunk through the same tables
             self.spec.on_prefill_chunk(self, toks, lens, last_idx)
-        tok_np = self._pick(logits, temps)
         self.caches = caches
         self._c_chunk_steps.inc()
         now = time.perf_counter()
@@ -1387,14 +1426,14 @@ class ContinuousEngine:
                 self.pool.ensure_writable(i, int(self._pos[i]),
                                           int(self._pos[i]))
             self._apply_cow()
-            logits, caches = N.decode_step(
-                self.params, self.cfg, self._tensor(toks), self.caches,
-                self._tensor(self._pos), self._bt, self._tensor(adv))
+            tok_np, caches = self._fns["decode_sample_paged"](
+                self.params, self._tensor(toks), self.caches,
+                self._tensor(self._pos), self._bt, self._tensor(adv), temps)
         else:
             logits, caches = N.decode_step(
                 self.params, self.cfg, self._tensor(toks), self.caches,
                 self._tensor(self._pos))
-        tok_np = self._pick(logits, temps)
+            tok_np = self._pick(logits, temps)
         self.caches = caches
         if self.paged:
             # the step above IS the application of the gather GEMMs
@@ -1505,10 +1544,9 @@ class ContinuousEngine:
             lens[i] = len(d) + 1
         self._register_gemms(self.slots * L, self.slots * L)
         t0 = time.perf_counter()
-        logits, caches = N.verify_paged_chunk(
-            self.params, self.cfg, self._tensor(toks), self.caches,
-            self._slot_ids, self._bt, self._tensor(lens))
-        tok_np = logits.argmax(dim=-1).cpu().numpy()
+        tok_np, caches = self._fns["verify_chunk"](
+            self.params, self._tensor(toks), self.caches, self._slot_ids,
+            self._bt, self._tensor(lens))
         self.caches = caches
         self._c_steps.inc()
         self._s_decode.append(time.perf_counter())

@@ -31,9 +31,10 @@ policies subclass :class:`SchedulerPolicy` and register with
 :func:`register_policy`; ``ContinuousEngine(policy="name")`` resolves
 through :func:`make_policy`.
 
-``model_*`` run on :class:`StepCosts`'s default prior (a chunk batch
-costs three decode steps) until the planner, which calibrates it, is
-ported; only ratios are compared, so the unit cancels.
+``model_*`` take their costs from ``WorkloadModel(cfg, geom).step_costs()``
+(``repro_torch.planner``); without one they run on :class:`StepCosts`'s
+shape-free prior (a chunk batch costs three decode steps).  Only ratios
+are compared, so the unit cancels.
 """
 
 from __future__ import annotations
@@ -41,30 +42,9 @@ from __future__ import annotations
 import dataclasses
 from collections.abc import Callable
 
+# StepCosts lives in planner.model; policies and callers use it from here
+from repro_torch.planner.model import StepCosts  # noqa: F401
 from repro_torch.serving.kv_pool import ProbeReport
-
-
-@dataclasses.dataclass(frozen=True)
-class StepCosts:
-    """Relative cost of an engine dispatch (a copy of
-    ``repro.planner.model.StepCosts``); the policies compare ratios only."""
-
-    chunk_cost: float = 3.0     # one prefill-chunk batch dispatch
-    decode_cost: float = 1.0    # one batched decode/verify dispatch
-    prefill_chunk: int = 32     # tokens per chunk dispatch
-
-    def prefill_dispatches(self, prompt_len: int) -> int:
-        """Chunk batches a prompt needs before its first token."""
-        return max(1, -(-int(prompt_len) // self.prefill_chunk))
-
-    def ttft_cost(self, prompt_len: int) -> float:
-        """Modeled cost from admission to first token."""
-        return self.prefill_dispatches(prompt_len) * self.chunk_cost
-
-    def service_cost(self, prompt_len: int, new_tokens: int) -> float:
-        """Modeled cost of one request's whole residency in a slot."""
-        return (self.ttft_cost(prompt_len)
-                + max(int(new_tokens) - 1, 0) * self.decode_cost)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1075,3 +1075,81 @@ def test_retried_decode_step_on_card(cuda, monkeypatch):
             eng.step()
     assert eng.drain_results() == []
     assert eng.metrics.value("resilience.quarantined") == 0
+
+
+def test_profiler_on_card_spans_and_bit_identical_attach(cuda):
+    """The dispatch profiler on a small CUDA engine: attached mid-flight
+    it leaves the caches, tables, cursors, pool, sampler and schedule
+    statistics bit-identical, gives calibration spans of all four
+    dispatches and serve spans of the steps that follow, and the run's
+    fp32 tokens stay those of an unprofiled run."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.obs import DISPATCH_NAMES, DispatchProfiler, Telemetry
+    cfg = dataclasses.replace(TC.get("qwen2_0_5b").scaled_down(),
+                              gemm_backend="scheduled")
+    params = TN.init(cfg, seed=0, device=cuda)
+    reqs = _serving_requests(cfg.vocab)
+    want = {r.rid: r.tokens.tolist() for r in ContinuousEngine(
+        cfg, params, slots=2, max_len=128, device=cuda).run(reqs)}
+    eng = ContinuousEngine(cfg, params, slots=2, max_len=128, device=cuda,
+                           telemetry=Telemetry.on())
+    for r in _serving_requests(cfg.vocab):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+
+    def state():
+        leaves = []
+        tree_map(lambda _p, a: leaves.append(a.clone()), eng.caches)
+        st = eng.schedule.stats()
+        return (leaves, eng._bt.clone(), eng._pos.copy(),
+                eng.pool.snapshot_state(), eng.generator.get_state(),
+                (st["hits"], st["misses"], eng.schedule.key_stats()))
+
+    torch.cuda.synchronize()
+    before = state()
+    prof = DispatchProfiler(reps=2)
+    eng.obs.profiler = prof
+    prof.attach(eng)
+    torch.cuda.synchronize()
+    after = state()
+    assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+    assert torch.equal(before[1], after[1])
+    assert np.array_equal(before[2], after[2])
+    assert before[3] == after[3]
+    assert torch.equal(before[4], after[4]) and before[5] == after[5]
+    got = {}
+    while len(got) < len(reqs):
+        eng.step()
+        got.update({r.rid: r.tokens.tolist() for r in eng.drain_results()})
+    assert got == want
+    cal = {s["name"] for s in prof.spans if s["kind"] == "calibration"}
+    assert cal == set(DISPATCH_NAMES)
+    assert any(s["kind"] == "serve" for s in prof.spans)
+    assert all(s["dur_s"] > 0 for s in prof.spans)
+
+
+def test_step_cost_full_width_allocates_and_launches_nothing(cuda):
+    """``step_cost`` at full qwen2 width runs on fake CPU tensors: no
+    device memory, no kernel launch, no schedule statistic moves."""
+    from repro_torch.launch.step_cost import hot_dispatches, step_cost
+    cfg = dataclasses.replace(TC.get("qwen2_0_5b"),
+                              gemm_backend="scheduled")
+    sched = TOPS.backend_for(cfg).schedule
+
+    def counters():
+        return (TPA.launches.count, TPA.launches_int8.count,
+                TMP.launches.count, TMP.spill_launches.count,
+                TQM.launches.count, TSSD.launches.count,
+                TLG.launches.count, sched.stats())
+
+    torch.cuda.synchronize()
+    mem, before = torch.cuda.memory_allocated(), counters()
+    costs = {name: step_cost(fn, *args) for name, fn, args in
+             hot_dispatches(cfg, slots=8, max_len=1024)}
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == mem
+    assert counters() == before
+    assert costs["head_apply"]["flops"] == 2 * 8 * cfg.vocab * cfg.d_model
+    assert costs["prefill_paged_chunk"]["flops"] > costs["decode_step"][
+        "flops"] > 0

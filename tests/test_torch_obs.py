@@ -8,9 +8,9 @@ the engine's async request API.
     reference's ``validate_chrome_trace`` passing the port's engine
     trace, whose per-request invariants hold and whose admit / resume /
     preempt / finish counts equal the registry's.
-  * ``Telemetry``: off records nothing, ``on(profile=True)`` is refused
-    (the profiler is not ported), a decode span closes after the step's
-    token readback.
+  * ``Telemetry``: off records nothing, ``on(profile=True)`` carries a
+    ``DispatchProfiler``, a decode span closes after the step's token
+    readback.
   * ``start()`` / ``submit()`` / ``get_result()`` / ``stop()`` give
     ``run()``'s tokens; a dead serve loop surfaces as ``RuntimeError``;
     submitters on many threads each get one Result.
@@ -36,7 +36,7 @@ from repro_torch import configs as TC
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import network as TN
 from repro_torch.models.layers import tree_map
-from repro_torch.obs import Telemetry, render_report
+from repro_torch.obs import DispatchProfiler, Telemetry, render_report
 from repro_torch.obs import events as TEV
 from repro_torch.obs import metrics as TM
 from repro_torch.serving.engine import ContinuousEngine, Request
@@ -249,8 +249,9 @@ def test_telemetry_off_and_profile_refused(tiny, monkeypatch):
     eng.run(_reqs(tiny[0].vocab, n=2))
     assert len(eng.obs.tracer) == 0 and not eng.obs.tracer.counters
     assert eng.metrics.value("engine.requests_finished") == 2
-    with pytest.raises(NotImplementedError, match="5b"):
-        Telemetry.on(profile=True)
+    tel = Telemetry.on(profile=True, reps=2)
+    assert isinstance(tel.profiler, DispatchProfiler)
+    assert tel.profiler.reps == 2 and tel.tracer.enabled
     # a decode span closes after the step's token readback
     real = ContinuousEngine._pick
 
