@@ -331,6 +331,50 @@ mean pool utilization at least best_fit's).  The time split prints
 this slice: its phases and its cases inside policy_path and
 serve_cli_path.
 
+Quantized SSM serving, MoE with llama4-scout and the paper's tables add,
+after profile_scaled_down_fp32:
+
+  ssm_quant_path: mamba2-2.7b and zamba2-7b at published width, int8
+  under the engine's default policy (in_proj, out_proj, zamba2's shared
+  attention and the untied heads; zamba2's shared attention on int8 KV
+  blocks), phase 5's request shape at chunk 256, under both backends
+  with the pool audit after every step: K3 once a GEMM a step under
+  scheduled (mamba2 129, zamba2 189), none under xla, K5 once a MAMBA2
+  layer a chunk step (64, 68), K1-int8 once a shared-attention layer a
+  decode step (zamba2 13), K2 and the fp K1 never; tok/s, TTFT p50 and
+  TPOT p50 beside the fp runs of mamba2_path and families_path;
+
+  ssm_quant_scaled_down_fp32: scaled-down int8 mamba2 and zamba2 (every
+  projection, init-scale weights): tokens identical across backends;
+
+  moe_path: llama4-scout at its published widths (d 5120, 40 / 8 heads,
+  hd 128, 16 experts of 8192 with top-1, the shared expert, vocab
+  202048), the depth cut from 48 to 8 layers (about 37 GiB of bf16
+  weights against 200.7 GiB, built layer by layer on the card), 8
+  requests of 64-512 prompt tokens and 32 new, 8 slots, max_len 1024,
+  chunk 256, under both backends, fp and then int8, the pool audit after
+  every step: K1 (K1-int8) 8 a decode step, K2 65 a step under fp
+  scheduled, K3 57 and K2 8 (the router) under int8 scheduled, every
+  launch on the Hopper route, no slot dropped in a decode step, the
+  dropped (token, expert) slots of each chunk step reported; one chunk
+  and one decode step profiled;
+
+  moe_scaled_down_fp32: scaled-down llama4 (x4), fp and int8: tokens
+  identical across backends;
+
+  paper_tables: ``repro_torch.launch.paper_tables`` on this machine,
+  which has no JAX: every table's derived number equal to
+  ``tests/_paper_expected.py`` (the values the CPU parity test holds),
+  and its CLI.
+
+  K1 at llama4's heads (G 5) and zamba2's 32 KV heads join phase 3 and
+  4b, K2 at llama4's GEMMs (the router's N = 16 included) phase 4, K3 at
+  the SSM in_proj / out_proj, zamba2's shared attention, the SSM heads
+  (mamba2's on the CUDA cores) and llama4's int8 GEMMs phase 4b; phase 7
+  times K1 and K1-int8 at those heads, K2 at the router and the shared
+  expert, K3 at the SSM shapes (8 and 2048 rows) and the routed experts'
+  ``torch.bmm`` as context.  The time split prints this slice.
+
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
 the CUDA-core route; the int8 main path does the same for K3
@@ -483,7 +527,7 @@ def main(argv=None) -> int:
     #: K3 and K5 checks, timing rows), by slice and phase: the families
     #: since qwen1.5 and the dense path
     added_s: dict = {"families": {}, "dense": {}, "resilience": {},
-                     "profile": {}}
+                     "profile": {}, "moe": {}}
 
     def added(phase, t0, slice_="families"):
         got = added_s[slice_]
@@ -600,7 +644,20 @@ def main(argv=None) -> int:
                             50.0),
         "llava_hd128_G4": (8, 8, 4, 128, 16, 64,
                            [0, 1, 299, 300, 301, 1024, 700, 9], 300, None),
+        # moe_path's llama4-scout heads (40 over 8 KV heads: G 5, hd 128)
+        # and ssm_quant_path's zamba2 shared attention (32 KV heads, G 1,
+        # hd 112, int8 KV there)
+        "llama4_hd128_G5": (8, 8, 5, 128, 16, 64,
+                            [0, 1, 63, 64, 65, 1024, 500, 9], None, None),
+        "zamba2_hd112_G1_KV32": (8, 32, 1, 112, 16, 64,
+                                 [0, 1, 63, 64, 65, 1024, 500, 9], None,
+                                 None),
     }
+    #: the slice each of the later split cases belongs to (time split)
+    k1_case_slice = {"gemma2_hd256_G2": "families",
+                     "llava_hd128_G4": "families",
+                     "llama4_hd128_G5": "moe",
+                     "zamba2_hd112_G1_KV32": "moe"}
 
     def check_k1(quant: bool):
         """K1 (or K1-int8) against its plain version: today's qwen2 cases
@@ -615,7 +672,7 @@ def main(argv=None) -> int:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             for key, B, KV, G, hd, bs, nbs, lens, window, cap in cases:
                 t0 = time.perf_counter()
-                fam = key in ("gemma2_hd256_G2", "llava_hd128_G4")
+                slice_ = k1_case_slice.get(key)
                 q, k, v, table, lens_t = decode_inputs(
                     dtype, lens, B=B, KV=KV, G=G, hd=hd, bs=bs, nbs=nbs)
                 kw = dict(scale=0.125, window=window, logit_cap=cap)
@@ -639,9 +696,9 @@ def main(argv=None) -> int:
                       f"split, splits {plan}): max|err| {err:.3e} (tol "
                       f"{tol}), repeat bit-equal {equal} "
                       f"{'ok' if ok else 'MISMATCH'}")
-                if fam:
+                if slice_:
                     added("k1_int8_vs_plain" if quant else "k1_vs_plain",
-                          t0)
+                          t0, slice_)
                 if not ok:
                     raise AssertionError(f"{name} {key}: err {err} > {tol},"
                                          f" non-zero length-0 row or a "
@@ -668,7 +725,11 @@ def main(argv=None) -> int:
                                         (4096, 14336), (32000, 4096)],
               "zamba2_7b": [(3584, 3584), (14576, 3584), (3584, 7168),
                             (32000, 3584)]}
-    HEADS = (151936, 50280, 65024, 256000, 32000)
+    # moe_path's llama4-scout: q/o, k/v, the router (N = 16), the shared
+    # expert's gate/up and down, and the head (N, K)
+    moe_nk = [(5120, 5120), (1024, 5120), (16, 5120), (8192, 5120),
+              (5120, 8192), (202048, 5120)]
+    HEADS = (151936, 50280, 65024, 256000, 32000, 202048)
 
     def gemm_inputs(M, N, K, dtype, seed):
         # a ~ N(0, 1/K), b ~ N(0, 1): products of order 1, as after RMSNorm
@@ -730,6 +791,15 @@ def main(argv=None) -> int:
                   + [(512, N, K) for N, K in m2_nk if N not in HEADS]
                   + [(1, 151936, 896), (1, 50280, 2560),
                      (4608, 4096, 4096)]]
+        # moe_path's GEMMs at decode rows and, but for the head, chunk rows
+        # (8 x 256), under every variant and as the engine calls them
+        n_moe = len(cases)
+        moe_shapes = [(M, N, K) for N, K in moe_nk for M in (8, 2048)
+                      if M == 8 or N not in HEADS]
+        cases += [(s, torch.bfloat16, v) for s in moe_shapes
+                  for v in variants]
+        cases += [(s, torch.bfloat16, ("scheduled", None, None))
+                  for s in moe_shapes]
         sched = ScheduleCache()
         rows, worst = [], {}
         for i, ((M, N, K), dtype, (name, df, fold)) in enumerate(cases):
@@ -792,7 +862,9 @@ def main(argv=None) -> int:
                          "bit_equal_repeat": same,
                          "ok": rel <= tol and same})
             del a, b, got, want
-            if i >= n_dense:
+            if i >= n_moe:
+                added("k2_vs_plain", t0, "moe")
+            elif i >= n_dense:
                 added("k2_vs_plain", t0, "dense")
             elif i >= n_fam:
                 added("k2_vs_plain", t0)
@@ -822,6 +894,16 @@ def main(argv=None) -> int:
             raise AssertionError("K2: a case took the other route")
 
     # -- 4b. K1-int8 and K3 against their plain versions --------------------
+    # mamba2's and zamba2's in_proj and out_proj (N, K): int8 under
+    # ssm_quant_path
+    ssm_quant_nk = [(10576, 2560), (2560, 5120), (14576, 3584),
+                    (3584, 7168)]
+    # the rest of ssm_quant_path's K3 calls: zamba2's shared attention
+    # q/k/v/o at decode and chunk rows, and the untied heads' (D, V)
+    # payloads at 8 rows (mamba2's V = 50280 takes the CUDA-core route)
+    ssm_quant_more = [(8, 3584, 3584), (2048, 3584, 3584),
+                      (8, 50280, 2560), (8, 32000, 3584)]
+
     def p_k1_int8():
         check_k1(True)
 
@@ -864,6 +946,16 @@ def main(argv=None) -> int:
         cases += [((M, N, K), torch.bfloat16, False, None)
                   for M in (8, 2048) for N, K in fam_nk["qwen1_5_4b"][:3]]
         cases.append(((8, 151936, 2560), torch.bfloat16, False, None))
+        # ssm_quant_path's int8 in_proj and out_proj of mamba2 and zamba2
+        # and moe_path's int8 llama4 (q/o, k/v, the shared expert, the
+        # head's (D, V) payload), at decode and chunk rows
+        n_moe = len(cases)
+        cases += [((M, N, K), torch.bfloat16, False, None)
+                  for M in (8, 2048) for N, K in ssm_quant_nk]
+        cases += [(s_, torch.bfloat16, False, None) for s_ in ssm_quant_more]
+        cases += [((M, N, K), torch.bfloat16, False, None)
+                  for M in (8, 2048) for N, K in moe_nk
+                  if N != 16 and (M == 8 or N not in HEADS)]
         rows, worst = [], {}
         for i, ((M, N, K), dtype, unaligned, tile) in enumerate(cases):
             t0 = time.perf_counter()
@@ -903,7 +995,9 @@ def main(argv=None) -> int:
                          and same and route == want_route
                          and ran[route] == (2 if got is not again else 1)})
             del x, w8, sc, got, again, want
-            if i >= n_fam:
+            if i >= n_moe:
+                added("k3_vs_plain", t0, "moe")
+            elif i >= n_fam:
                 added("k3_vs_plain", t0)
         rep["k3_check"] = rows
         for key, (rel, n_) in worst.items():
@@ -3716,6 +3810,108 @@ def main(argv=None) -> int:
                   f"({b_by})")
         return rows
 
+    def k1_timing(B, KV, G, hd, T, quant, flush, nbs=64, window=None,
+                  logit_cap=None, plain_iters=50):
+        """K1 (or K1-int8) at one head geometry, B rows of T tokens in an
+        nbs-entry table of 16-position blocks: kernel, plain version,
+        bound over the positions the window keeps, and SDPA over the kept,
+        gathered, head-expanded KV: the library call, or context where no
+        PyTorch call computes the same function (int8 KV with scales: SDPA
+        over the dequantized KV; a softcap: SDPA without it)."""
+        bs = 16
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B, B=B,
+                                             KV=KV, G=G, hd=hd, nbs=nbs,
+                                             seed=T + hd)
+        kw = dict(scale=hd ** -0.5)
+        if window is not None:
+            kw["window"] = window
+        if logit_cap is not None:
+            kw["logit_cap"] = logit_cap
+        kept = T if window is None else min(T, window)
+        kd, vd = k, v
+        if quant:
+            k, v, kw["k_scale"], kw["v_scale"] = int8_kv(k.shape, 3)
+            kd, vd = ((x.float() * s_[..., None]).to(torch.bfloat16)
+                      for x, s_ in ((k, kw["k_scale"]), (v, kw["v_scale"])))
+        kg, vg = (PA.gather_pool_blocks(x, table)[:, T - kept:T]
+                  .permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                  .contiguous() for x in (kd, vd))
+        kv_bytes = 2 * B * kept * KV * ((hd + 4) if quant else hd * 2)
+        nbytes = 2 * 2 * q.numel() + kv_bytes + 4 * (table.numel() + B)
+        b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * kept * hd, "bfloat16")
+        sdpa_ms = time_ms(lambda: sdpa(q.reshape(B, KV * G, 1, hd), kg, vg,
+                                       scale=hd ** -0.5), 200, flush)
+        context = None
+        if quant:
+            context = "SDPA over the dequantized KV"
+        elif logit_cap is not None:
+            context = ("SDPA (no softcap) over the kept, gathered, "
+                       "head-expanded KV")
+        row = {"B": B, "KV": KV, "G": G, "hd": hd, "tokens": T,
+               "kept": kept, "window": window, "softcap": logit_cap,
+               "int8_kv": quant, "split_plan": PA.split_plan(B, KV, nbs, bs),
+               "ms": time_ms(lambda: PA.paged_decode(q, k, v, table, lens,
+                                                     **kw), 200, flush),
+               "plain_ms": time_ms(lambda: PA.gather_fallback(
+                   q, k, v, table, lens, **kw), plain_iters, flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None if context else sdpa_ms,
+               "context_ms": sdpa_ms if context else None,
+               "context": context}
+        del q, k, v, kd, vd, kg, vg
+        win = "" if window is None else f" (window {window} keeps {kept})"
+        cap = "" if logit_cap is None else f" softcap {logit_cap}"
+        print(f"[{card}] K1{'-int8' if quant else ''} B={B} KV={KV} G={G} "
+              f"hd={hd} len={T}{win}{cap} (split_plan {row['split_plan']}): "
+              f"kernel {row['ms']*1e3:.1f} us, plain "
+              f"{row['plain_ms']*1e3:.1f} us, SDPA"
+              f"{' (context)' if context else ''} {sdpa_ms*1e3:.1f} us, "
+              f"bound {b_ms*1e3:.2f} us ({b_by})")
+        return row
+
+    def moe_timing(sched, flush):
+        """This slice's rows: K1 at llama4-scout's heads and K1-int8 at
+        zamba2's shared attention (512 tokens); K2 at llama4's router and
+        shared expert; K3 at mamba2's and zamba2's int8 in_proj and
+        out_proj; one of the routed experts' three bmm of a layer at
+        decode (C 8) and chunk (C 160) capacity, as context."""
+        timing["paged_decode_moe"] = [
+            k1_timing(8, 8, 5, 128, 512, False, flush),
+            k1_timing(8, 32, 1, 112, 512, True, flush)]
+        timing["mpgemm_moe_shapes"] = k2_timing(
+            [(M, N_, K_) for M in (8, 2048)
+             for N_, K_ in ((16, 5120), (8192, 5120), (5120, 8192))],
+            sched, flush)
+        # 2048 rows: few iterations (_weight_int8pack_mm takes 60-240 ms
+        # a call there)
+        rows = QT.measure([(8, N_, K_) for N_, K_ in ssm_quant_nk], dev,
+                          flush)
+        rows += QT.measure([(2048, N_, K_) for N_, K_ in ssm_quant_nk], dev,
+                           flush, iters=5)
+        for r in rows:
+            print(f"[{card}] " + QT.describe(r))
+        timing["quant_matmul_ssm_shapes"] = rows
+        E, D, F = 16, 5120, 8192
+        gen = torch.Generator(device=dev).manual_seed(9)
+        w = (0.02 * torch.randn(E, D, F, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        bmm_rows = []
+        for C in (8, 160):
+            x = (torch.randn(E, C, D, generator=gen, device=dev) / D ** 0.5
+                 ).to(torch.bfloat16)
+            ms = time_ms(lambda: torch.bmm(x, w), 20, flush)
+            b_ms, b_by = bound_ms(2 * (x.numel() + w.numel() + E * C * F),
+                                  2 * E * C * D * F, "bfloat16")
+            bmm_rows.append({"E": E, "C": C, "D": D, "F": F, "ms": ms,
+                             "bound_ms": b_ms, "bound_by": b_by})
+            print(f"[{card}] routed experts' gate bmm (E {E}, C {C}, D {D}, "
+                  f"F {F}) bf16 (context; torch.bmm): {ms*1e3:.1f} us, "
+                  f"bound {b_ms*1e3:.1f} us ({b_by})")
+            del x
+        del w
+        timing["moe_experts_bmm"] = bmm_rows
+
     def p_timing():
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
         # K1 and K1-int8: one layer's decode at B=8, bf16 q, contexts of
@@ -3723,51 +3919,18 @@ def main(argv=None) -> int:
         # SDPA over the pre-gathered, head-expanded KV beside K1 (for
         # K1-int8 over pre-dequantized bf16 KV: no PyTorch call takes int8
         # KV with scales).  512 is the row the kernels line reports.
-        B, KV, G, hd, bs, nbs = 8, 2, 7, 64, 16, 64
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        B, KV, G, hd, bs = 8, 2, 7, 64, 16
         k1_rows = []
         for T in (32, 512, 1024):
-            q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B)
-            k8, v8, ks, vs = int8_kv(k.shape, 3)
-            kg, vg = (PA.gather_pool_blocks(x, table)[:, :T]
-                      .permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-                      .contiguous() for x in (k, v))
-            qh = q.reshape(B, KV * G, 1, hd)
-            qkw = dict(scale=0.125, k_scale=ks, v_scale=vs)
+            fp = k1_timing(B, KV, G, hd, T, False, flush)
+            q8 = k1_timing(B, KV, G, hd, T, True, flush)
             row = {"tokens": T, "blocks": T // bs,
-                   "split_plan": PA.split_plan(B, KV, nbs, bs)}
-            for name, fn, plain_fn, kv_bytes in (
-                    ("paged_decode",
-                     lambda: PA.paged_decode(q, k, v, table, lens,
-                                             scale=0.125),
-                     lambda: PA.gather_fallback(q, k, v, table, lens,
-                                                scale=0.125),
-                     2 * B * T * KV * hd * 2),
-                    ("paged_decode_int8",
-                     lambda: PA.paged_decode(q, k8, v8, table, lens, **qkw),
-                     lambda: PA.gather_fallback(q, k8, v8, table, lens,
-                                                **qkw),
-                     2 * B * T * KV * (hd + 4))):
-                nbytes = 2 * 2 * q.numel() + kv_bytes \
-                    + 4 * (table.numel() + B)
-                b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * T * hd,
-                                      "bfloat16")
-                row[name] = {"ms": time_ms(fn, 200, flush),
-                             "plain_ms": time_ms(plain_fn, 50, flush),
-                             "bound_ms": b_ms, "bound_by": b_by}
-            row["sdpa_ms"] = time_ms(
-                lambda: sdpa(qh, kg, vg, scale=0.125), 200, flush)
+                   "split_plan": fp["split_plan"],
+                   "sdpa_ms": fp["library_ms"]}
+            for name, r in (("paged_decode", fp), ("paged_decode_int8", q8)):
+                row[name] = {k_: r[k_] for k_ in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
             k1_rows.append(row)
-            print(f"K1 B={B} KV={KV} G={G} hd={hd} bs={bs} len={T} bf16 "
-                  f"(split_plan {row['split_plan']}): kernel "
-                  f"{row['paged_decode']['ms']*1e3:.1f} us, int8 "
-                  f"{row['paged_decode_int8']['ms']*1e3:.1f} us, SDPA "
-                  f"{row['sdpa_ms']*1e3:.1f} us, plain "
-                  f"{row['paged_decode']['plain_ms']*1e3:.1f} / "
-                  f"{row['paged_decode_int8']['plain_ms']*1e3:.1f} us, "
-                  f"bound {row['paged_decode']['bound_ms']*1e3:.2f} / "
-                  f"{row['paged_decode_int8']['bound_ms']*1e3:.2f} us")
-            del kg, vg
         # fixed cost and cost per block: least squares over the three rows
         xs = np.array([r["blocks"] for r in k1_rows], dtype=float)
         fit = {}
@@ -3791,52 +3954,16 @@ def main(argv=None) -> int:
             library_ms=None, library="none (no PyTorch call takes int8 KV "
                                      "with scales)",
             context_ms=mid["sdpa_ms"],
-            context="SDPA over pre-dequantized bf16 KV (the K1 row)",
+            context="SDPA over bf16 KV of the same shape (the K1 row)",
             split_plan=mid["split_plan"])
 
         t0 = time.perf_counter()
         # K1 at gemma2's heads (families_path): B 8, KV 8, G 2, hd 256,
         # window 4096, softcap 50, a 272-block table (max_len 4352), at 512
-        # tokens and at 4200, where the window drops the first 104; the
-        # bound counts the positions the window keeps.  No PyTorch call
-        # takes the softcap: SDPA without it over the kept, head-expanded
-        # KV is the context
-        B, KV, G, hd, nbs, win = 8, 8, 2, 256, 272, 4096
-        rows = []
-        for T in (512, 4200):
-            q, k, v, table, lens = decode_inputs(torch.bfloat16, [T] * B,
-                                                 B=B, KV=KV, G=G, hd=hd,
-                                                 nbs=nbs, seed=T)
-            kept = min(T, win)
-            kg, vg = (PA.gather_pool_blocks(x, table)[:, T - kept:T]
-                      .permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-                      .contiguous() for x in (k, v))
-            kw = dict(scale=hd ** -0.5, window=win, logit_cap=50.0)
-            nbytes = 2 * 2 * q.numel() + 2 * B * kept * KV * hd * 2 \
-                + 4 * (table.numel() + B)
-            b_ms, b_by = bound_ms(nbytes, 4 * B * KV * G * kept * hd,
-                                  "bfloat16")
-            row = {"tokens": T, "kept": kept, "B": B, "KV": KV, "G": G,
-                   "hd": hd, "window": win, "softcap": 50.0,
-                   "split_plan": PA.split_plan(B, KV, nbs, 16),
-                   "ms": time_ms(lambda: PA.paged_decode(
-                       q, k, v, table, lens, **kw), 200, flush),
-                   "plain_ms": time_ms(lambda: PA.gather_fallback(
-                       q, k, v, table, lens, **kw), 20, flush),
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                   "context_ms": time_ms(lambda: sdpa(
-                       q.reshape(B, KV * G, 1, hd), kg, vg,
-                       scale=hd ** -0.5), 200, flush),
-                   "context": "SDPA (no softcap) over the kept, gathered, "
-                              "head-expanded KV"}
-            rows.append(row)
-            print(f"[{card}] K1 gemma2 heads B={B} KV={KV} G={G} hd={hd} "
-                  f"len={T} (window {win} keeps {kept}, split_plan "
-                  f"{row['split_plan']}): kernel {row['ms']*1e3:.1f} us, "
-                  f"plain {row['plain_ms']*1e3:.1f} us, SDPA context "
-                  f"{row['context_ms']*1e3:.1f} us, bound "
-                  f"{b_ms*1e3:.2f} us ({b_by})")
-            del q, k, v, kg, vg
+        # tokens and at 4200, where the window drops the first 104
+        rows = [k1_timing(8, 8, 2, 256, T, False, flush, nbs=272,
+                          window=4096, logit_cap=50.0, plain_iters=20)
+                for T in (512, 4200)]
         timing["paged_decode_hd256"] = rows
         added("timing", t0)
 
@@ -3864,6 +3991,9 @@ def main(argv=None) -> int:
             [(M, 4864, 896) for M in (16, 512, 1024, 4096)]
             + [(1, 151936, 896), (4608, 4096, 4096)], sched, flush)
         added("timing", t0, "dense")
+        t0 = time.perf_counter()
+        moe_timing(sched, flush)
+        added("timing", t0, "moe")
 
         # K3: every int8 projection shape of the path, bf16 x, with its
         # route and plan (launch/quant_tiles.py), and the host time a call
@@ -4268,6 +4398,456 @@ def main(argv=None) -> int:
                                      f" in a decode step")
         rep["step_profile"] = out
 
+    # -- 12. int8 serving of the SSM configs ----------------------------------
+    def free_memory():
+        """Collect unreachable engines (their reference cycles keep
+        weights and pools alive until the collector runs), then return
+        the cached blocks to the card."""
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def ssm_quant_want(cfg, r, backend):
+        """Launches an int8 run should make: every projection and the
+        head through K3 under scheduled (``k2_per_step``'s GEMMs), none
+        under xla; K5 once a MAMBA2 layer a chunk step; K1-int8 once a
+        shared-attention layer a decode step; K2 and the fp K1 never."""
+        kinds = block_kinds(cfg)
+        n_attn = sum(k is not BlockKind.MAMBA2 for k in kinds)
+        steps = r["decode_steps"] + r["chunk_steps"]
+        return {"quant_matmul": k2_per_step(cfg) * steps
+                if backend == "scheduled" else 0,
+                "mpgemm": 0, "paged_decode": 0,
+                "paged_decode_int8": n_attn * r["decode_steps"],
+                "ssd_intra": (len(kinds) - n_attn) * r["chunk_steps"]}
+
+    def p_ssm_quant():
+        """mamba2-2.7b and zamba2-7b at published width, int8 (the
+        engine's default policy: in_proj, out_proj, zamba2's shared
+        attention and the untied heads; zamba2's shared attention on
+        int8 KV blocks), on phase 5's request shape at chunk 256, under
+        both backends with the pool audit after every step."""
+        out = {}
+        fp_rows = {"mamba2_2_7b": rep.get("mamba2", {}).get("scheduled"),
+                   "zamba2_7b": rep.get("families", {}).get("zamba2_7b")}
+        for arch in ("mamba2_2_7b", "zamba2_7b"):
+            base = CONFIGS.get(arch)
+            params = params_m2() if arch == "mamba2_2_7b" else \
+                N.init(base, args.seed, dev)
+            qcfg = dataclasses.replace(base, quant_serving=True)
+            qparams = serving_quant_params(qcfg, params)
+            if arch != "mamba2_2_7b":
+                del params
+            reqs = requests(np.random.default_rng(args.seed), 8, 64, 513,
+                            32, base.vocab)
+            chunk = base.ssm.chunk
+            warm = requests(np.random.default_rng(99), 2, 40, 41, 4,
+                            base.vocab)
+            ContinuousEngine(qcfg, qparams, slots=8, max_len=1024,
+                             prefill_chunk=chunk, device=dev).run(warm)
+            torch.cuda.synchronize()
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(qcfg, gemm_backend=b)
+                eng, res, wall, counts = serve(cfg, qparams, reqs, 8, 1024,
+                                               audit=True,
+                                               prefill_chunk=chunk)
+                r = summary(eng, res, wall)
+                r["launches"] = counts
+                r["quantized_pool"] = eng.pool.stats()["quantized"]
+                r["kv_allocated"] = eng.kv_bytes()["allocated"]
+                r["tokens"] = [q.tokens.tolist() for q in res]
+                want = ssm_quant_want(cfg, r, b)
+                got = {k: counts[k] for k in want}
+                r["expected_launches"] = want
+                steps = r["decode_steps"] + r["chunk_steps"]
+                r["per_step"] = {k: v / max(steps, 1) for k, v in got.items()
+                                 if k in ("quant_matmul",)}
+                out[f"{arch} {b}"] = r
+                fp = fp_rows[arch]
+                beside = "" if fp is None else (
+                    f" (fp run: {fp['tok_per_s']:.1f} tok/s, TTFT p50 "
+                    f"{fp['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                    f"{fp['tpot_p50_ms']:.2f} ms)")
+                print(f"[{card}] {base.name} int8 full width, {b}, chunk "
+                      f"{chunk}: {r['ok']}/{r['requests']} ok, "
+                      f"{r['new_tokens']} tokens in {r['wall_s']:.2f} s = "
+                      f"{r['tok_per_s']:.1f} tok/s, TTFT p50 "
+                      f"{r['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                      f"{r['tpot_p50_ms']:.2f} ms{beside}; "
+                      f"{r['decode_steps']} decode + {r['chunk_steps']} "
+                      f"chunk steps; launches {got} (expected {want}), "
+                      f"K3 by route {counts['quant_matmul_by_route']}, pool "
+                      f"int8 {r['quantized_pool']}")
+                bad = []
+                if r["ok"] != 8 or r["new_tokens"] != 8 * 32:
+                    bad.append(f"{r['ok']}/8 ok, {r['new_tokens']} tokens")
+                if got != want or not r["decode_steps"] \
+                        or not r["chunk_steps"]:
+                    bad.append(f"launches {got}, expected {want}")
+                # the untied head's (D, V) int8 payload takes K3's
+                # CUDA-core kernel where TMA refuses its row stride
+                # (mamba2's rows of V = 50280 bytes are not a multiple of
+                # 16): one a step
+                core = steps if b == "scheduled" and cfg.vocab % 16 else 0
+                r["k3_cuda_core_expected"] = core
+                if counts["quant_matmul_by_route"]["cuda_core"] != core:
+                    bad.append(f"K3 by route "
+                               f"{counts['quant_matmul_by_route']}, "
+                               f"expected {core} on the CUDA cores (the "
+                               f"head)")
+                if r["quantized_pool"] != int(arch == "zamba2_7b"):
+                    bad.append(f"pool int8 {r['quantized_pool']}")
+                if bad:
+                    raise AssertionError(f"{arch} int8 {b}: "
+                                         + "; ".join(bad))
+                del eng
+            tx, ts = (out[f"{arch} {b}"]["tokens"]
+                      for b in ("xla", "scheduled"))
+            same = sum(x == y for a, c in zip(tx, ts)
+                       for x, y in zip(a, c))
+            out[f"{arch} agreement"] = same / sum(len(a) for a in tx)
+            print(f"{base.name} int8 greedy agreement xla vs scheduled "
+                  f"(bf16, not gated): {same}/{sum(len(a) for a in tx)}")
+            del qparams
+            free_memory()
+        rep["ssm_quant"] = out
+
+    def p_ssm_quant_small():
+        """Scaled-down mamba2 and zamba2, fp32, int8 at every projection
+        (``QuantPolicy(min_size=0)``), init-scale weights (the CPU parity
+        tests' x1): greedy tokens identical across backends."""
+        out = {}
+        pol = QuantPolicy(min_size=0)
+        for arch in ("mamba2_2_7b", "zamba2_7b"):
+            base = dataclasses.replace(CONFIGS.get(arch).scaled_down(),
+                                       quant_serving=True)
+            params = N.init(base, args.seed, dev)
+            reqs = requests(np.random.default_rng(args.seed + 1), 8, 4, 100,
+                            16, base.vocab)
+            toks, counts = {}, {}
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(base, gemm_backend=b)
+                _eng, res, _, counts[b] = serve(cfg, params, reqs, 4, 160,
+                                                audit=True, quant_policy=pol,
+                                                prefill_chunk=32)
+                if not all(r.status == "ok" and len(r.tokens) == 16
+                           for r in res):
+                    raise AssertionError(f"scaled-down int8 {arch} {b}: a "
+                                         f"request failed")
+                toks[b] = [r.tokens.tolist() for r in res]
+            same = toks["xla"] == toks["scheduled"]
+            distinct = [len(set(t)) for t in toks["xla"]]
+            out[arch] = {"identical": same, "distinct_per_request": distinct,
+                         "launches": counts}
+            print(f"scaled-down fp32 int8 {base.name}: greedy tokens "
+                  f"identical across backends: {same}; distinct tokens a "
+                  f"request {distinct}; K3 launches (scheduled) "
+                  f"{counts['scheduled']['quant_matmul']}")
+            if not same:
+                raise AssertionError(f"scaled-down int8 {arch} tokens "
+                                     f"differ between backends")
+            if min(distinct) < 4:
+                raise AssertionError(f"degenerate greedy output: {distinct}")
+        rep["ssm_quant_small"] = out
+
+    # -- 13. MoE: llama4-scout through the paged engine ----------------------
+    #: moe_path's depth: every width of llama4-scout kept (d 5120, 40 / 8
+    #: heads, hd 128, 16 experts of 8192, the shared expert, vocab 202048);
+    #: 8 of its 48 layers, so that its bf16 weights (~39 GB) fit one card
+    MOE_LAYERS = 8
+    MOE_CHUNK = 256
+
+    def moe_config():
+        return dataclasses.replace(CONFIGS.get("llama4_scout_17b_a16e"),
+                                   n_layers=MOE_LAYERS).validate()
+
+    def init_layerwise(cfg, seed):
+        """``cfg``'s random weights with ``network.init``'s scales, built
+        on the card in the parameter dtype leaf by leaf and a stacked
+        leaf layer by layer: no fp32 copy of a whole (L, E, D, F) expert
+        leaf (10.7 GB in bf16 at full width) is ever held."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dt = getattr(torch, cfg.param_dtype)
+
+        def make(_path, d):
+            out = torch.empty(d.shape, dtype=dt, device=dev)
+            if d.init == "zeros":
+                return out.zero_()
+            if d.init == "ones":
+                return out.fill_(1.0)
+            for part in (out if out.dim() >= 3 else (out,)):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=dev) * d.scale)
+            return out
+        return tree_map(make, N.param_defs(cfg))
+
+    def param_bytes(params):
+        total = [0]
+
+        def fn(_p, a):
+            for t in ((a.q, a.scale) if hasattr(a, "q") else (a,)):
+                total[0] += t.numel() * t.element_size()
+            return a
+        tree_map(fn, params)
+        return total[0]
+
+    def moe_want(cfg, r, backend, quant):
+        """A step's launches: an attention layer's q, k, v and o, the
+        router and the shared expert's gate, up and down (8 GEMMs a
+        layer) and the head -- K2 under fp scheduled; under int8 all but
+        the router through K3 (7 a layer and the head) and the router
+        through K2; none under xla.  K1 (or K1-int8) once a layer a
+        decode step."""
+        L = cfg.n_layers
+        steps = r["decode_steps"] + r["chunk_steps"]
+        sched = backend == "scheduled"
+        k1 = L * r["decode_steps"]
+        return {"mpgemm": (L if quant else 8 * L + 1) * steps if sched
+                else 0,
+                "quant_matmul": (7 * L + 1) * steps if sched and quant
+                else 0,
+                "paged_decode": 0 if quant else k1,
+                "paged_decode_int8": k1 if quant else 0,
+                "ssd_intra": 0}
+
+    def drops_by_step(drops, L):
+        """(decode-step drops, per chunk step [drops, slots, capacity])
+        from ``moe.record_drops``'s entries, L consecutive a step."""
+        steps = [drops[i:i + L] for i in range(0, len(drops), L)]
+        decode, chunks = 0, []
+        for st in steps:
+            n = int(sum(int(d) for _s, _c, d in st))
+            slots, cap = st[0][0], st[0][1]
+            if slots == 8:              # 8 slots x 1 token: a decode step
+                decode += n
+            else:
+                chunks.append([n, slots, cap])
+        return decode, chunks
+
+    def p_moe():
+        """llama4-scout at published widths, 8 layers: 8 requests of 64-512
+        prompt tokens and 32 new, 8 slots, max_len 1024, chunk 256, under
+        both backends, fp and then int8 (the engine's default policy), the
+        pool audit after every step; then one chunk step and one decode
+        step profiled."""
+        from repro_torch.models import moe as MOE
+        t_phase = time.perf_counter()
+        # the earlier phases' engines (reference cycles: freed by the
+        # collector, not by their last name) and mamba2's cached weights
+        # go first: the run needs ~37 GiB of weights and ~12 GiB to
+        # quantize the (202048, 5120) head
+        m2_params.clear()
+        free_memory()
+        free_gib = torch.cuda.mem_get_info(dev)[0] / 2**30
+        cfg0 = moe_config()
+        t0 = time.perf_counter()
+        params = init_layerwise(cfg0, args.seed)
+        torch.cuda.synchronize()
+        n_full = [0]
+        tree_map(lambda _p, d: n_full.__setitem__(
+            0, n_full[0] + int(np.prod(d.shape))),
+            N.param_defs(CONFIGS.get("llama4_scout_17b_a16e")))
+        full_gb = n_full[0] * 2 / 2**30
+        out = {"layers": MOE_LAYERS, "of_layers": 48,
+               "free_gib_before": free_gib,
+               "weights_gib": param_bytes(params) / 2**30,
+               "full_model_gib": full_gb,
+               "init_s": time.perf_counter() - t0}
+        print(f"[{card}] llama4-scout-17b-16e at published widths, depth "
+              f"cut from 48 to {MOE_LAYERS} layers: weights "
+              f"{out['weights_gib']:.1f} GiB in bf16 against "
+              f"{full_gb:.1f} GiB for the whole model, built layer by "
+              f"layer on the card in {out['init_s']:.1f} s ({free_gib:.1f} "
+              f"GiB free before)")
+        reqs = requests(np.random.default_rng(args.seed), 8, 64, 513, 32,
+                        cfg0.vocab)
+        qparams = None
+        for quant in (False, True):
+            qcfg = dataclasses.replace(cfg0, quant_serving=quant)
+            if quant:
+                free_memory()
+                qparams = serving_quant_params(qcfg, params)
+                out["int8_weights_gib"] = param_bytes(qparams) / 2**30
+            tree = qparams if quant else params
+            warm = requests(np.random.default_rng(99), 2, 40, 41, 4,
+                            cfg0.vocab)
+            ContinuousEngine(qcfg, tree, slots=8, max_len=1024,
+                             prefill_chunk=MOE_CHUNK, device=dev).run(warm)
+            torch.cuda.synchronize()
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(qcfg, gemm_backend=b)
+                tag = f"{'int8' if quant else 'fp'} {b}"
+                with MOE.record_drops() as drops:
+                    eng, res, wall, counts = serve(
+                        cfg, tree, reqs, 8, 1024, audit=True,
+                        prefill_chunk=MOE_CHUNK)
+                r = summary(eng, res, wall)
+                r["launches"] = counts
+                r["tokens"] = [q.tokens.tolist() for q in res]
+                r["quantized_pool"] = eng.pool.stats()["quantized"]
+                want = moe_want(cfg, r, b, quant)
+                got = {k: counts[k] for k in want}
+                r["expected_launches"] = want
+                decode_drops, chunk_drops = drops_by_step(drops,
+                                                          cfg.n_layers)
+                r["decode_drops"], r["chunk_drops"] = decode_drops, \
+                    chunk_drops
+                out[tag] = r
+                print(f"[{card}] llama4-scout {MOE_LAYERS} layers, {tag}: "
+                      f"{r['ok']}/{r['requests']} ok, {r['new_tokens']} "
+                      f"tokens in {r['wall_s']:.2f} s = "
+                      f"{r['tok_per_s']:.1f} tok/s, TTFT p50 "
+                      f"{r['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                      f"{r['tpot_p50_ms']:.2f} ms, {r['decode_steps']} "
+                      f"decode + {r['chunk_steps']} chunk steps; launches "
+                      f"{got} (expected {want}); dropped (token, expert) "
+                      f"slots: decode steps {decode_drops}, each chunk "
+                      f"step [dropped, slots, capacity] {chunk_drops}; "
+                      f"schedule misses {r['schedule_misses']}")
+                bad = []
+                if r["ok"] != 8 or r["new_tokens"] != 8 * 32:
+                    bad.append(f"{r['ok']}/8 ok, {r['new_tokens']} tokens")
+                if got != want or not r["decode_steps"] \
+                        or not r["chunk_steps"]:
+                    bad.append(f"launches {got}, expected {want}")
+                if counts["mpgemm_by_route"]["cuda_core"] \
+                        or counts["quant_matmul_by_route"]["cuda_core"]:
+                    bad.append(f"a bf16 GEMM took the CUDA-core route: "
+                               f"{counts}")
+                if decode_drops:
+                    bad.append(f"a decode step dropped {decode_drops} slots")
+                if len(chunk_drops) != r["chunk_steps"]:
+                    bad.append(f"{len(chunk_drops)} chunk-step drop "
+                               f"records for {r['chunk_steps']} chunk steps")
+                if r["quantized_pool"] != int(quant):
+                    bad.append(f"pool int8 {r['quantized_pool']}")
+                if bad:
+                    raise AssertionError(f"llama4 {tag}: " + "; ".join(bad))
+                del eng
+            tx, ts = (out[f"{'int8' if quant else 'fp'} {b}"]["tokens"]
+                      for b in ("xla", "scheduled"))
+            same = sum(x == y for a, c in zip(tx, ts) for x, y in zip(a, c))
+            out[f"{'int8' if quant else 'fp'} agreement"] = \
+                same / sum(len(a) for a in tx)
+            print(f"llama4 {'int8' if quant else 'fp'} greedy agreement xla "
+                  f"vs scheduled (bf16, not gated): {same}/"
+                  f"{sum(len(a) for a in tx)}")
+        # logits of a short prefill, finite, under both backends
+        cfgs = {b: dataclasses.replace(cfg0, gemm_backend=b)
+                for b in ("xla", "scheduled")}
+        lx, ls = prefill_logits(cfgs, params, np.random.default_rng(5),
+                                "llama4")
+        if tuple(lx.shape) != (2, cfg0.vocab) or not (
+                torch.isfinite(lx).all() and torch.isfinite(ls).all()):
+            raise AssertionError("llama4 logits not finite / bad shape")
+        # one chunk step (8 x 256 rows) and one decode step profiled:
+        # prompts of 2.5 chunks, step 1 timed, step 2 profiled, step 3 ends
+        # the prefill, then decode steps
+        cfg = dataclasses.replace(cfg0, gemm_backend="scheduled")
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               prefill_chunk=MOE_CHUNK, device=dev)
+        plen = 5 * MOE_CHUNK // 2
+        for r in requests(np.random.default_rng(7), 8, plen, plen + 1, 16,
+                          cfg.vocab):
+            eng.submit(r)
+        chunk = measure(eng, 1)
+        eng.step()
+        eng.step()
+        decode = measure(eng, 5)
+        out["step_profile"] = {"chunk": chunk, "decode": decode}
+        for kind, pr in (("chunk", chunk), ("decode", decode)):
+            show(f"llama4-scout ({MOE_LAYERS} layers) {kind} step, "
+                 f"scheduled", pr)
+            print(f"llama4 {kind} step: top aten ops by device time: "
+                  + "; ".join(f"{k} {t:.2f} ms x{c}"
+                              for k, t, c in pr["top_ops"]))
+        expert_bytes = 3 * cfg.moe.n_experts * cfg.d_model \
+            * cfg.moe.d_ff_expert * 2 * cfg.n_layers
+        out["decode_expert_read_bound_ms"] = expert_bytes / 3.35e12 * 1e3
+        print(f"llama4 decode step: the routed experts' weights "
+              f"({expert_bytes / 1e9:.1f} GB) bound it at "
+              f"{out['decode_expert_read_bound_ms']:.2f} ms; device time "
+              f"{decode['device_ms']:.2f} ms")
+        if decode["k1_launches"] != cfg.n_layers or chunk["k1_launches"]:
+            raise AssertionError(f"llama4 profiled steps: K1 "
+                                 f"{decode['k1_launches']} a decode step, "
+                                 f"{chunk['k1_launches']} a chunk step")
+        del eng, params, qparams
+        free_memory()
+        out["seconds"] = time.perf_counter() - t_phase
+        rep["moe"] = out
+
+    def p_moe_small():
+        """Scaled-down llama4 (8 experts, top-1, the shared expert, fp32)
+        at weights x4 (the CPU parity tests' scale), fp and int8 (every
+        projection: ``QuantPolicy(min_size=0)``): greedy tokens identical
+        across backends and varied."""
+        base = CONFIGS.get("llama4_scout_17b_a16e").scaled_down()
+        params = tree_map(lambda _p, a: a * 4.0,
+                          N.init(base, args.seed, dev))
+        reqs = requests(np.random.default_rng(args.seed + 1), 8, 4, 100, 16,
+                        base.vocab)
+        out = {}
+        for quant in (False, True):
+            qbase = dataclasses.replace(base, quant_serving=quant)
+            toks, counts = {}, {}
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(qbase, gemm_backend=b)
+                _eng, res, _, counts[b] = serve(
+                    cfg, params, reqs, 4, 160, audit=True, prefill_chunk=32,
+                    quant_policy=QuantPolicy(min_size=0))
+                if not all(r.status == "ok" and len(r.tokens) == 16
+                           for r in res):
+                    raise AssertionError(f"scaled-down llama4 {b}: a "
+                                         f"request failed")
+                toks[b] = [r.tokens.tolist() for r in res]
+            same = toks["xla"] == toks["scheduled"]
+            distinct = [len(set(t)) for t in toks["xla"]]
+            tag = "int8" if quant else "fp"
+            out[tag] = {"identical": same, "distinct_per_request": distinct,
+                        "launches": counts}
+            print(f"scaled-down fp32 llama4 {tag}, weights x4: greedy "
+                  f"tokens identical across backends: {same}; distinct "
+                  f"tokens a request {distinct}")
+            if not same:
+                raise AssertionError(f"scaled-down llama4 {tag} tokens "
+                                     f"differ between backends")
+            if min(distinct) < 4:
+                raise AssertionError(f"degenerate greedy output: {distinct}")
+        rep["moe_small"] = out
+
+    # -- 14. the paper's tables, on a machine without JAX ---------------------
+    def p_paper_tables():
+        """``repro_torch.launch.paper_tables``: every table's derived
+        number equal to the value the CPU parity test holds
+        (``tests/_paper_expected.py``), and its CLI."""
+        from _paper_expected import DERIVED, ROWS
+        from repro_torch.launch import paper_tables as PT
+        got = {}
+        for name in DERIVED:
+            rows, derived = getattr(PT, name)()
+            got[name] = derived
+            ok = derived == DERIVED[name] and len(rows) == ROWS[name]
+            print(f"{name}: {len(rows)} rows, derived {derived} "
+                  f"{'ok' if ok else 'MISMATCH ' + str(DERIVED[name])}")
+            if not ok:
+                raise AssertionError(f"{name}: {derived} != "
+                                     f"{DERIVED[name]}")
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.paper_tables", "all"],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        lines = [ln for ln in cli.stdout.splitlines()
+                 if not ln.startswith(" ")]
+        print("\n".join(lines))
+        if cli.returncode or len(lines) != 1 + len(DERIVED):
+            raise AssertionError(f"paper_tables CLI rc {cli.returncode}: "
+                                 f"{cli.stderr[-500:]}")
+        if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+                                       for m in sys.modules):
+            raise AssertionError("the reference package or JAX was imported")
+        rep["paper_tables"] = {"derived": got, "cli": lines}
+
     phases = (("device", p_device), ("build", p_build),
               ("k1_vs_plain", p_k1), ("k1_int8_vs_plain", p_k1_int8),
               ("k2_vs_plain", p_k2), ("k3_vs_plain", p_k3),
@@ -4291,8 +4871,14 @@ def main(argv=None) -> int:
                          ("serve_cli_path", p_serve_cli))
     profile_phases = (("profile_path", p_profile_path),
                       ("profile_scaled_down_fp32", p_profile_small))
+    moe_phases = (("ssm_quant_path", p_ssm_quant),
+                  ("ssm_quant_scaled_down_fp32", p_ssm_quant_small),
+                  ("moe_path", p_moe),
+                  ("moe_scaled_down_fp32", p_moe_small),
+                  ("paper_tables", p_paper_tables))
     phases += family_phases + dense_phases + resilience_phases + \
-        profile_phases + (("timing", p_timing), ("step_profile", p_profile))
+        profile_phases + moe_phases + (("timing", p_timing),
+                                       ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
         if name != "device" and "build" in sm.failures:
@@ -4307,7 +4893,8 @@ def main(argv=None) -> int:
     slices = {"families": {"families_path"} | {n for n, _ in family_phases},
               "dense": {n for n, _ in dense_phases},
               "resilience": {n for n, _ in resilience_phases},
-              "profile": {n for n, _ in profile_phases}}
+              "profile": {n for n, _ in profile_phases},
+              "moe": {n for n, _ in moe_phases}}
     secs = {n: v["seconds"] for n, v in rep["phases"].items()}
     rep["time_split"] = {}
     for sl, names in slices.items():

@@ -12,7 +12,7 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: list[str] = ["qwen2_0_5b", "mamba2_2_7b", "qwen1_5_4b",
                         "chatglm3_6b", "gemma2_9b", "llava_next_mistral_7b",
-                        "zamba2_7b"]
+                        "zamba2_7b", "llama4_scout_17b_a16e"]
 
 #: accepted aliases (the dashed ids)
 ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b",
@@ -21,7 +21,8 @@ ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b",
                             "chatglm3-6b": "chatglm3_6b",
                             "gemma2-9b": "gemma2_9b",
                             "llava-next-mistral-7b": "llava_next_mistral_7b",
-                            "zamba2-7b": "zamba2_7b"}
+                            "zamba2-7b": "zamba2_7b",
+                            "llama4-scout-17b-16e": "llama4_scout_17b_a16e"}
 
 __all__ = ["ALIASES", "ARCH_IDS", "get"]
 

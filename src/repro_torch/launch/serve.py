@@ -13,7 +13,9 @@ preemptions and pool utilisation, and the speculation counters.
         [--gemm-backend scheduled]
     python -m repro_torch.launch.serve --arch gemma2_9b \
         [--gemm-backend scheduled]   # or qwen1_5_4b, chatglm3_6b,
-                                     # llava_next_mistral_7b, zamba2_7b
+                                     # llava_next_mistral_7b, zamba2_7b,
+                                     # llama4_scout_17b_a16e
+    python -m repro_torch.launch.serve --arch zamba2_7b --quant
     python -m repro_torch.launch.serve --arch qwen2_0_5b \
         --policy slo_preempt --ttft-slo 0.05 --arrival-ms 20
     python -m repro_torch.launch.serve --arch qwen2_0_5b \
@@ -29,10 +31,14 @@ preemptions and pool utilisation, and the speculation counters.
         --arch qwen2_0_5b --slots 4 --max-len 256
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--quant`` on
-an SSM config (mamba2, zamba2) raises ``NotImplementedError``: its
-quantized path is not ported yet; ``--spec`` on it is refused, as the
-reference refuses it.  llava serves its text path (its patch prefix
-enters through ``network.prefill``).  The continuous engines serve
+an SSM config makes ``in_proj``, ``out_proj`` and the untied head int8
+(mamba2 has no KV pool; zamba2's shared attention takes int8 KV blocks);
+``--spec`` on it is refused, as the reference refuses it.  llama4-scout
+(``--arch llama4_scout_17b_a16e``) serves its MoE blocks: 16 experts,
+top-1, and a shared expert; under ``--quant`` its attention, shared
+expert and head go int8 while the stacked routed experts and the router
+stay float, as in the reference.  llava serves its text path (its patch
+prefix enters through ``network.prefill``).  The continuous engines serve
 through their async API, as the reference's launcher does: ``start()``,
 one ``submit()`` a request (``--arrival-ms`` sleeps an exponential gap
 of that mean before each), ``get_result()`` for each, ``stop()``.
@@ -253,7 +259,8 @@ def main(argv=None) -> dict:
               "decode_steps": eng.steps, "quant": bool(args.quant),
               "build_s": build_s}
     if args.quant:
-        kv_kind = ("int8 KV blocks" if cfg.quant_kv
+        kv_kind = ("no KV pool" if cfg.attention_free
+                   else "int8 KV blocks" if cfg.quant_kv
                    and args.engine == "continuous" else "fp KV")
         print(f"[serve] int8 serving: QuantTensor weights + {kv_kind}")
     print(f"[serve:{args.engine}] {len(results)} requests, {toks} tokens "

@@ -1,8 +1,9 @@
 """Network assembly, the full-sequence forward and the serving functions,
 dense and paged (port of ``repro.models.network`` without training):
 decoder stacks of ATTN and ATTN_LOCAL blocks (sandwich norms, scaled
-embeddings and softcaps by config), attention-free MAMBA2 stacks, and
-zamba2's hybrid of MAMBA2 blocks, shared attention and a MAMBA2 tail.
+embeddings and softcaps by config; a dense MLP or, where ``cfg.moe``, the
+MoE FFN of ``models.moe``), attention-free MAMBA2 stacks, and zamba2's
+hybrid of MAMBA2 blocks, shared attention and a MAMBA2 tail.
 
 Parameters keep the reference's tree: ``{"embed": {"table"}, "final_norm",
 "blocks": (group,)}`` with a leading stacked group dim on every block
@@ -49,6 +50,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (ParamDef, dense, embed_apply,
@@ -68,10 +70,10 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.mla is not None \
-            or cfg.first_layer_dense_ff or cfg.frontend == "frames":
+    if cfg.mla is not None or cfg.first_layer_dense_ff \
+            or cfg.frontend == "frames":
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA, a dense first layer and the frames "
+            f"{cfg.name}: MLA, a dense first layer and the frames "
             f"frontend are not ported yet (see ROADMAP.md)")
 
 
@@ -92,7 +94,10 @@ def _block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
     if cfg.post_norms:
         defs["post_ln1"] = _norm_def(d)
         defs["post_ln2"] = _norm_def(d)
-    defs["mlp"] = mlp_defs(d, cfg.d_ff)
+    if cfg.moe is not None:
+        defs["moe"] = M.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(d, cfg.d_ff)
     return defs
 
 
@@ -173,8 +178,12 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln1"], eps)
     x = x + out
-    out = mlp_apply(p["mlp"], rms_norm(x, p["ln2"], eps), cfg.act,
-                    backend=backend)
+    h = rms_norm(x, p["ln2"], eps)
+    if "moe" in p:
+        # the aux loss belongs to the training path
+        out, _aux = M.moe_apply(p["moe"], h, cfg, backend=backend)
+    else:
+        out = mlp_apply(p["mlp"], h, cfg.act, backend=backend)
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln2"], eps)
     return x + out, None if nc is None else nc["pos"]

@@ -321,10 +321,6 @@ class ContinuousEngine:
         self._c_spec_verifies = m.counter("spec.slot_verifies",
                                           "(slot, verify-step) events")
         self.cfg = cfg
-        if cfg.quant_serving and cfg.has_recurrent_state:
-            raise NotImplementedError(
-                f"{cfg.name}: quantized serving of SSM configs is not "
-                f"ported yet (ROADMAP.md, Queue 1 item 7)")
         if cfg.quant_serving:
             # idempotent: an already-quantized tree passes through
             params = serving_quant_params(cfg, params, quant_policy)
@@ -595,10 +591,12 @@ class ContinuousEngine:
     def _register_gemms(self, m_tokens: int, head_rows: int) -> None:
         """Resolve the step's projection p-GEMMs (memoized)."""
         cfg, d = self.cfg, self.cfg.d_model
+        # an MoE config's FFN GEMMs run at the expert width
+        d_ff = cfg.moe.d_ff_expert if cfg.moe is not None else cfg.d_ff
         shapes = [(m_tokens, cfg.n_heads * cfg.hd, d),
                   (m_tokens, cfg.n_kv_heads * cfg.hd, d),
                   (m_tokens, d, cfg.n_heads * cfg.hd),
-                  (m_tokens, cfg.d_ff, d), (m_tokens, d, cfg.d_ff),
+                  (m_tokens, d_ff, d), (m_tokens, d, d_ff),
                   (head_rows, cfg.vocab, d)]
         for M, Nn, K in shapes:
             # attention-free configs zero out dims (mamba2: d_ff == 0, no

@@ -27,9 +27,6 @@ full-sequence ``network.forward`` with llava's patch prefix, the dense
 """
 
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -50,7 +47,7 @@ from repro_torch.models.layers import tree_map
 from repro_torch.serving.engine import ContinuousEngine, Request, WaveEngine
 from _dense_trace import MAX_LEN, SLOTS, arch_params, trace
 from _family_scales import FAMILY_SCALES, family_config
-from _torch_port import WEIGHT_SCALE, with_backend
+from _torch_port import WEIGHT_SCALE, reference_process, with_backend
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,17 +64,6 @@ def scales(arch):
 
 
 _REFERENCE = """
-import json, sys, types
-import jax, jax.numpy as jnp
-import numpy as np
-sys.path[:0] = [{root!r}, {tests!r}]
-import repro.serving.engine as E
-# each dispatch gets a copy of the host arrays it reads (module docstring)
-shim = types.SimpleNamespace(**{{k: getattr(jnp, k) for k in dir(jnp)
-                                 if not k.startswith("__")}})
-shim.asarray = lambda x, *a, **k: jnp.array(
-    np.array(x) if isinstance(x, np.ndarray) else x, *a, **k)
-E.jnp = shim
 from repro.serving.engine import ContinuousEngine, Request, WaveEngine
 from _dense_trace import MAX_LEN, SLOTS, arch_params, trace
 out = {{}}
@@ -107,19 +93,8 @@ def reference_proc():
     so that it runs beside the in-process tests (which take half the
     cores meanwhile: the tiny torch ops slow down many times over when
     their threads contend with the reference's compiles)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads // 2))
-    code = _REFERENCE.format(root=str(ROOT), tests=str(ROOT / "tests"),
-                             scales={a: scales(a) for a in ENGINE_ARCHS})
-    proc = subprocess.Popen([sys.executable, "-c", code],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, cwd=ROOT,
-                            env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    yield proc
-    torch.set_num_threads(threads)
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    code = _REFERENCE.format(scales={a: scales(a) for a in ENGINE_ARCHS})
+    yield from reference_process(code, ROOT, one_thread=False)
 
 
 _RUNS: dict = {}

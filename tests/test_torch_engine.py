@@ -9,10 +9,6 @@ reference pins its own scheduled backend to its xla backend in
 ``tests/test_gemm_backend.py``.)
 """
 
-import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,16 +20,13 @@ from repro_torch.models import bridge
 from repro_torch.models import network as TN
 from repro_torch.serving import kv_pool
 from repro_torch.serving.engine import ContinuousEngine, Request
-from _torch_port import reference_params, with_backend
+from _torch_port import reference_params, run_reference, with_backend
 
 SLOTS, MAX_LEN, MAX_NEW = 2, 128, 8
 ROOT = Path(__file__).resolve().parents[1]
 
 
 _REFERENCE = """
-import json, sys
-import jax, jax.numpy as jnp
-sys.path[:0] = [{root!r}, {tests!r}]
 from benchmarks.serve_bench import _trace
 from repro.serving.engine import ContinuousEngine
 from _torch_port import reference_params
@@ -56,13 +49,8 @@ def reference_run():
     XLA:CPU rounding depends on what ran before it in the same process
     (an earlier spec/profiled engine changes it), and greedy decoding of
     a random model turns a last-bit difference into another token."""
-    code = _REFERENCE.format(root=str(ROOT), tests=str(ROOT / "tests"),
-                             slots=SLOTS, max_new=MAX_NEW, max_len=MAX_LEN)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=ROOT,
-                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    assert out.returncode == 0, out.stderr[-2000:]
-    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    code = _REFERENCE.format(slots=SLOTS, max_new=MAX_NEW, max_len=MAX_LEN)
+    ref = run_reference(code, ROOT, one_thread=False)
     _jcfg, params, tcfg = reference_params()
     reqs = _trace(4, SLOTS, tcfg.vocab)
     for r in reqs:

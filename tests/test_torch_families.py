@@ -27,10 +27,6 @@ streams vary (as ``WEIGHT_SCALE`` does for qwen2).
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 import time
 from pathlib import Path
 
@@ -51,7 +47,7 @@ from repro_torch.models.config import MLAConfig, MoEConfig
 from repro_torch.models.layers import tree_map
 from repro_torch.serving.engine import ContinuousEngine, Request
 from _family_scales import ARCHS, FAMILY_SCALES, WINDOW, family_config
-from _torch_port import with_backend
+from _torch_port import run_reference, with_backend
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SLOTS, NB, BS = 3, 24, 8
@@ -73,28 +69,17 @@ def family_params(arch: str):
 
 
 _REFERENCE = """
-import json, sys, types
-import jax, jax.numpy as jnp
-import numpy as np
-sys.path[:0] = [{root!r}, {tests!r}]
-import repro.serving.engine as E
-# each dispatch gets a copy of the host arrays it reads (module docstring)
-shim = types.SimpleNamespace(**{{k: getattr(jnp, k) for k in dir(jnp)
-                                 if not k.startswith("__")}})
-shim.asarray = lambda x, *a, **k: jnp.array(
-    np.array(x) if isinstance(x, np.ndarray) else x, *a, **k)
-E.jnp = shim
 from repro.serving.engine import ContinuousEngine, Request
 from test_torch_families import ARCHS, ENGINE, MAX_NEW, family_params, prompts
-out = {{}}
+out = {}
 for arch in ARCHS:
     jcfg, params, _ = family_params(arch)
     eng = ContinuousEngine(jcfg, jax.tree.map(jnp.asarray, params),
                            audit=True, **ENGINE)
     res = eng.run([Request(i, p, MAX_NEW, eos=-1)
                    for i, p in enumerate(prompts(jcfg.vocab))])
-    out[arch] = {{"tokens": {{r.rid: r.tokens.tolist() for r in res}},
-                 "steps": [eng.steps, eng.chunk_steps]}}
+    out[arch] = {"tokens": {r.rid: r.tokens.tolist() for r in res},
+                 "steps": [eng.steps, eng.chunk_steps]}
 print(json.dumps(out))
 """
 
@@ -106,12 +91,7 @@ def prompts(vocab):
 
 @pytest.fixture(scope="module")
 def reference_runs():
-    code = _REFERENCE.format(root=str(ROOT), tests=str(ROOT / "tests"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=ROOT,
-                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    assert out.returncode == 0, out.stderr[-2000:]
-    runs = json.loads(out.stdout.strip().splitlines()[-1])
+    runs = run_reference(_REFERENCE, ROOT, one_thread=False)
     for ref in runs.values():
         ref["tokens"] = {int(k): v for k, v in ref["tokens"].items()}
     return runs
@@ -140,16 +120,21 @@ def test_registry_and_supported_families():
         assert TC.get(cfg.name) == cfg               # the dashed alias
         TN.param_defs(cfg)                           # supported
     base = TC.get("qwen2_0_5b")
-    for bad in (dict(moe=MoEConfig(8, 2, 128)), dict(mla=MLAConfig()),
-                dict(first_layer_dense_ff=256), dict(frontend="frames")):
+    for bad in (dict(mla=MLAConfig()), dict(first_layer_dense_ff=256),
+                dict(frontend="frames")):
         with pytest.raises(NotImplementedError):
             TN.param_defs(dataclasses.replace(base, **bad))
+    # MoE blocks are served (tests/test_torch_moe.py)
+    moe = TN.param_defs(dataclasses.replace(base, moe=MoEConfig(8, 2, 128)))
+    assert "moe" in moe["blocks"][0] and "mlp" not in moe["blocks"][0]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("llama4_scout_17b_a16e",))
 def test_serve_cli_serves_each_arch(arch, capsys):
     """``launch/serve.py --arch <dashed id> --scaled-down --device cpu``
-    serves every request; ``--quant`` on zamba2 (SSM state) is refused."""
+    serves every request; so does ``--quant`` on zamba2 (SSM state, int8
+    KV at its shared attention) and on llama4 (MoE), under both
+    backends."""
     from repro_torch.launch import serve
     argv = ["--arch", TC.get(arch).name, "--scaled-down", "--device",
             "cpu", "--requests", "3", "--prompt-len", "24", "--max-new",
@@ -157,9 +142,15 @@ def test_serve_cli_serves_each_arch(arch, capsys):
     report = serve.main(argv)
     assert report["ok"] == report["requests"] == 3
     assert f"[serve:{TC.get(arch).name} xla on cpu]" in capsys.readouterr().out
-    if arch == "zamba2_7b":
-        with pytest.raises(NotImplementedError):
-            serve.main(argv + ["--quant"])
+    if arch in ("zamba2_7b", "llama4_scout_17b_a16e"):
+        for backend in ("xla", "scheduled"):
+            report = serve.main(argv + ["--quant", "--gemm-backend",
+                                        backend])
+            assert report["ok"] == report["requests"] == 3
+            assert report["kv_quantized"] == 1
+            out = capsys.readouterr().out
+            assert "int8 KV blocks" in out
+            assert f"[serve:{TC.get(arch).name}+int8 {backend} on cpu]" in out
 
 
 def test_port_configs_equal_reference_field_for_field():

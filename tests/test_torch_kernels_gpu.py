@@ -38,6 +38,7 @@ from repro_torch.kernels import quant_matmul as TQM
 from repro_torch.kernels import ssd as TSSD
 from repro_torch.kernels.ref import int_matmul_mod64_ref
 from repro_torch.models import network as TN
+from repro_torch.models.config import BlockKind
 from repro_torch.models import ssm as TS
 from repro_torch.serving.engine import ContinuousEngine, Request
 from _torch_port import cuda  # noqa: F401  (fixture)
@@ -132,6 +133,12 @@ SPLIT_CASES = {
     # llava's (mistral's) sliding window: hd 128, G 4
     "hd128_G4_window": (8, 8, 4, 128, 16, 64,
                         (0, 1, 299, 300, 301, 1024, 700, 9), 300, None),
+    # llama4-scout's heads: 40 over 8 KV heads (G 5), hd 128
+    "hd128_G5_llama4": (8, 8, 5, 128, 16, 64,
+                        (0, 1, 63, 64, 65, 1024, 500, 9), None, None),
+    # zamba2's shared attention: 32 KV heads, G 1, hd 112
+    "hd112_G1_zamba2": (8, 32, 1, 112, 16, 64,
+                        (0, 1, 63, 64, 65, 1024, 500, 9), None, None),
 }
 
 
@@ -821,6 +828,12 @@ FAMILY_SHAPES = {
                               (8, 32000, 4096, "nk")],
     "zamba2_7b": [(8, 3584, 3584, "kn"), (8, 14576, 3584, "kn"),
                   (8, 3584, 7168, "kn"), (8, 32000, 3584, "nk")],
+    # llama4-scout: q/o, k/v, the router (N = 16) at decode and chunk
+    # rows, the shared expert and the head
+    "llama4_scout_17b_a16e": [(8, 5120, 5120, "kn"), (8, 1024, 5120, "kn"),
+                              (8, 16, 5120, "kn"), (2048, 16, 5120, "kn"),
+                              (8, 8192, 5120, "kn"), (8, 5120, 8192, "kn"),
+                              (8, 202048, 5120, "nk")],
 }
 
 
@@ -1153,3 +1166,106 @@ def test_step_cost_full_width_allocates_and_launches_nothing(cuda):
     assert costs["head_apply"]["flops"] == 2 * 8 * cfg.vocab * cfg.d_model
     assert costs["prefill_paged_chunk"]["flops"] > costs["decode_step"][
         "flops"] > 0
+
+
+def _ssm_quant_shapes(arch: str) -> list[tuple[int, int, int, str]]:
+    """(M, N, K, route) of every int8 GEMM an SSM config runs: in_proj and
+    out_proj at decode (8) and chunk (8 x 256) rows, zamba2's shared
+    attention q/k/v/o likewise, and the untied head's (D, V) payload at 8
+    rows.  bf16 x takes the Hopper route where TMA takes the weight's rows
+    (N a multiple of 16): mamba2's head (V = 50280) runs on the CUDA
+    cores."""
+    cfg = TC.get(arch)
+    defs = TS.mamba2_defs(cfg)
+    nk = [defs[k].shape[::-1] for k in ("in_proj", "out_proj")]
+    if BlockKind.SHARED_ATTN in cfg.pattern:
+        nk.append((cfg.n_heads * cfg.hd, cfg.d_model))
+    shapes = [(M, N, K) for N, K in nk for M in (8, 2048)]
+    shapes.append((8, cfg.vocab, cfg.d_model))
+    return [(M, N, K, "hopper" if N % 16 == 0 else "cuda_core")
+            for M, N, K in shapes]
+
+
+#: K3's int8 projections beside the SSM ones: llama4's q/o, k/v, shared
+#: expert and head payload (D, V) at decode rows
+QUANT_SHAPES = {
+    "mamba2_2_7b": _ssm_quant_shapes("mamba2_2_7b"),
+    "zamba2_7b": _ssm_quant_shapes("zamba2_7b"),
+    "llama4_scout_17b_a16e": [(8, 5120, 5120, "hopper"),
+                              (8, 1024, 5120, "hopper"),
+                              (8, 8192, 5120, "hopper"),
+                              (8, 5120, 8192, "hopper"),
+                              (8, 202048, 5120, "hopper")],
+}
+
+
+def test_quant_shapes_name_the_path():
+    """The SSM cases hold mamba2's CUDA-core head and zamba2's shared
+    attention and head, each on the route the path gives it."""
+    assert (8, 50280, 2560, "cuda_core") in QUANT_SHAPES["mamba2_2_7b"]
+    z = QUANT_SHAPES["zamba2_7b"]
+    assert {(8, 3584, 3584, "hopper"), (2048, 3584, 3584, "hopper"),
+            (8, 32000, 3584, "hopper")} <= set(z)
+
+
+@pytest.mark.parametrize("arch", list(QUANT_SHAPES))
+def test_quant_matmul_path_shapes(cuda, arch):
+    """K3 at the int8 path's shapes of mamba2, zamba2 and llama4 (bf16 x)
+    against its plain version on the route each shape takes,
+    |err| / (1 + |ref|) <= 1e-4, a repeat bit-equal."""
+    gen = torch.Generator().manual_seed(11)
+    TQM.reset_launches()
+    want_routes = {r: 0 for r in TQM.ROUTES}
+    for M, N, K, route in QUANT_SHAPES[arch]:
+        x = (torch.randn(M, K, generator=gen) * K ** -0.5).to(
+            cuda, torch.bfloat16)
+        w = torch.randint(-127, 128, (K, N), generator=gen,
+                          dtype=torch.int8).to(cuda)
+        sc = (torch.rand(N, generator=gen) * 0.02).to(cuda)
+        assert TQM.quant_matmul_route(x, w) == route, (M, N, K)
+        got = TQM.quant_matmul(x, w, sc)
+        again = TQM.quant_matmul(x, w, sc)
+        want = TQM.quant_matmul_ref(x, w, sc)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / (1 + want.abs())).max().item()
+        assert rel <= 1e-4, (M, N, K, rel)
+        assert torch.equal(got, again), (M, N, K)
+        want_routes[route] += 2
+    assert TQM.launches_by_route == want_routes
+
+
+@pytest.mark.parametrize("backend", ["xla", "scheduled"])
+def test_moe_apply_on_card_matches_cpu(cuda, backend):
+    """Scaled-down llama4's MoE layer (fp32) on the card against the same
+    call on the CPU, at capacity factor 1 on a batch that drops slots:
+    the dispatch (stable sort, ``scatter_``, ``index_add_``) drops the
+    same slots, the output agrees within 1e-4, and no call syncs."""
+    from repro_torch.kernels.ops import GemmBackend
+    from repro_torch.models import moe as TMOE
+    cfg = TC.get("llama4_scout_17b_a16e").scaled_down()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0))
+    params = TN.init(cfg, 0, "cpu")
+    p = {k: (v[0] if isinstance(v, torch.Tensor) else
+             {kk: vv[0] for kk, vv in v.items()})
+         for k, v in params["blocks"][0]["moe"].items()}
+    x = torch.randn(4, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
+    with TMOE.record_drops() as drops_cpu:
+        want, want_aux = TMOE.moe_apply(p, x, cfg)
+    pc = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else
+              {kk: vv.to(cuda) for kk, vv in v.items()})
+          for k, v in p.items()}
+    be = GemmBackend() if backend == "scheduled" else None
+    xc = x.to(cuda)
+    TMOE.moe_apply(pc, xc, cfg, backend=be)             # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with TMOE.record_drops() as drops:
+            got, aux = TMOE.moe_apply(pc, xc, cfg, backend=be)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(drops[0][2]) == int(drops_cpu[0][2]) > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6

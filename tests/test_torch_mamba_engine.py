@@ -15,10 +15,6 @@ process, as in ``tests/test_torch_quant_engine.py``.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -32,7 +28,7 @@ from repro_torch.models import bridge
 from repro_torch.models import network as TN
 from repro_torch.models.layers import tree_map
 from repro_torch.serving.engine import ContinuousEngine, Request
-from _torch_port import reference_params, with_backend
+from _torch_port import reference_params, run_reference, with_backend
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SLOTS, MAX_LEN, MAX_NEW = 2, 128, 8
@@ -41,10 +37,6 @@ CHUNKS = (32, 64)
 ROOT = Path(__file__).resolve().parents[1]
 
 _REFERENCE = """
-import json, sys
-import jax, jax.numpy as jnp
-import numpy as np
-sys.path[:0] = [{root!r}, {tests!r}]
 from repro.serving.engine import ContinuousEngine, Request
 from _torch_port import reference_params
 jcfg, params, _ = reference_params(scale=1.0, arch="mamba2_2_7b")
@@ -72,18 +64,9 @@ def mamba():
 
 @pytest.fixture(scope="module")
 def reference_run():
-    code = _REFERENCE.format(root=str(ROOT), tests=str(ROOT / "tests"),
-                             lens=PROMPT_LENS, chunks=CHUNKS, slots=SLOTS,
+    code = _REFERENCE.format(lens=PROMPT_LENS, chunks=CHUNKS, slots=SLOTS,
                              max_len=MAX_LEN, max_new=MAX_NEW)
-    flags = os.environ.get("XLA_FLAGS", "") + (
-        " --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=ROOT,
-                         env=dict(os.environ, JAX_PLATFORMS="cpu",
-                                  XLA_FLAGS=flags.strip()))
-    assert out.returncode == 0, out.stderr[-2000:]
-    return {int(k): v for k, v in
-            json.loads(out.stdout.strip().splitlines()[-1]).items()}
+    return {int(k): v for k, v in run_reference(code, ROOT).items()}
 
 
 def _prompts(vocab):

@@ -16,10 +16,6 @@ KV on write turns a last-bit difference into a whole int8 step.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -34,15 +30,12 @@ from repro_torch.models import attention as TA
 from repro_torch.models import bridge
 from repro_torch.quant.policy import QuantPolicy, QuantTensor
 from repro_torch.serving.engine import ContinuousEngine, Request
-from _torch_port import reference_params, with_backend
+from _torch_port import reference_params, run_reference, with_backend
 
 SLOTS, MAX_LEN, MAX_NEW = 2, 128, 8
 ROOT = Path(__file__).resolve().parents[1]
 
 _REFERENCE = """
-import dataclasses, json, sys
-import jax, jax.numpy as jnp
-sys.path[:0] = [{root!r}, {tests!r}]
 from benchmarks.serve_bench import _trace
 from repro.quant import QuantPolicy
 from repro.serving.engine import ContinuousEngine
@@ -66,16 +59,8 @@ print(json.dumps({{"tokens": {{r.rid: r.tokens.tolist() for r in res}},
 
 @pytest.fixture(scope="module")
 def reference_run():
-    code = _REFERENCE.format(root=str(ROOT), tests=str(ROOT / "tests"),
-                             slots=SLOTS, max_new=MAX_NEW, max_len=MAX_LEN)
-    flags = os.environ.get("XLA_FLAGS", "") + (
-        " --xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=ROOT,
-                         env=dict(os.environ, JAX_PLATFORMS="cpu",
-                                  XLA_FLAGS=flags.strip()))
-    assert out.returncode == 0, out.stderr[-2000:]
-    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    code = _REFERENCE.format(slots=SLOTS, max_new=MAX_NEW, max_len=MAX_LEN)
+    ref = run_reference(code, ROOT)
     jcfg, params, tcfg = reference_params()
     reqs = _trace(4, SLOTS, tcfg.vocab)
     for r in reqs:

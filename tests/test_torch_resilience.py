@@ -25,9 +25,6 @@ why).  Scaled-down fp32 qwen2 at weights x4.
 
 import dataclasses
 import json
-import os
-import subprocess
-import sys
 import types
 from pathlib import Path
 
@@ -36,7 +33,7 @@ import pytest
 import torch
 
 import _resilience_trace as RT
-from _torch_port import reference_params
+from _torch_port import reference_params, reference_process
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import bridge
 from repro_torch.models import network as TN
@@ -55,18 +52,6 @@ from repro_torch.serving.resilience import (RESULT_STATUSES, EngineCrash,
 ROOT = Path(__file__).resolve().parents[1]
 
 _REFERENCE = """
-import json, sys, types
-import jax, jax.numpy as jnp
-import numpy as np
-sys.path[:0] = [{root!r}, {tests!r}]
-import repro.serving.engine as E
-import repro.serving.spec as S
-# each dispatch gets a copy of the host arrays it reads (module docstring)
-shim = types.SimpleNamespace(**{{k: getattr(jnp, k) for k in dir(jnp)
-                                 if not k.startswith("__")}})
-shim.asarray = lambda x, *a, **k: jnp.array(
-    np.array(x) if isinstance(x, np.ndarray) else x, *a, **k)
-E.jnp = S.jnp = shim
 from repro.obs import Telemetry
 from repro.serving.engine import ContinuousEngine, Request
 from repro.serving.resilience import (FaultPlane, FaultSpec,
@@ -84,10 +69,10 @@ api = types.SimpleNamespace(
     make=make, Request=Request, FaultPlane=FaultPlane, FaultSpec=FaultSpec,
     ResilienceConfig=ResilienceConfig,
     serve_with_restarts=serve_with_restarts, Telemetry=Telemetry)
-print(json.dumps({{
-    "drills": {{d: RT.drill(d, api, jcfg.vocab) for d in RT.DRILLS}},
-    "metrics": {{k: RT.metric_kinds(make(**kw))
-                 for k, kw in RT.METRIC_CONFIGS.items()}}}}))
+print(json.dumps({
+    "drills": {d: RT.drill(d, api, jcfg.vocab) for d in RT.DRILLS},
+    "metrics": {k: RT.metric_kinds(make(**kw))
+                for k, kw in RT.METRIC_CONFIGS.items()}}))
 """
 
 
@@ -96,19 +81,7 @@ def reference_proc():
     """The reference's drills, started with the file's first test so that
     they run beside the in-process tests (which take half the cores
     meanwhile)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads // 2))
-    code = _REFERENCE.format(root=str(ROOT / "src"),
-                             tests=str(ROOT / "tests"))
-    proc = subprocess.Popen([sys.executable, "-c", code],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, cwd=ROOT,
-                            env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    yield proc
-    torch.set_num_threads(threads)
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    yield from reference_process(_REFERENCE, ROOT, one_thread=False)
 
 
 _RUNS: dict = {}

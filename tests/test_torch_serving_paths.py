@@ -33,10 +33,6 @@ the port matches them token for token.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 import time
 from pathlib import Path
 
@@ -58,24 +54,12 @@ from repro_torch.serving.engine import ContinuousEngine, Request
 from repro_torch.serving.policy import POLICY_NAMES
 from repro_torch.serving.resilience import ResilienceConfig
 from repro_torch.serving.spec import ModelDraft
-from _torch_port import reference_params, with_backend
+from _torch_port import reference_params, run_reference, with_backend
 
 SLOTS, SPEC_K = 4, 4
 ROOT = Path(__file__).resolve().parents[1]
 
 _REFERENCE = """
-import json, sys, time, types
-import jax, jax.numpy as jnp
-import numpy as np
-sys.path[:0] = [{root!r}, {tests!r}]
-import repro.serving.engine as E
-import repro.serving.spec as S
-# each dispatch gets a copy of the host arrays it reads (module docstring)
-shim = types.SimpleNamespace(**{{k: getattr(jnp, k) for k in dir(jnp)
-                                 if not k.startswith("__")}})
-shim.asarray = lambda x, *a, **k: jnp.array(
-    np.array(x) if isinstance(x, np.ndarray) else x, *a, **k)
-E.jnp = S.jnp = shim
 from benchmarks.serve_bench import (OVERLOAD_KV_BLOCKS, POLICY_MAX_LEN,
                                     SPEC_MAX_LEN, _overload_trace,
                                     _rep_trace)
@@ -120,13 +104,8 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def reference_runs():
-    code = _REFERENCE.format(root=str(ROOT), tests=str(ROOT / "tests"),
-                             slots=SLOTS, k=SPEC_K)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=ROOT,
-                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    assert out.returncode == 0, out.stderr[-2000:]
-    runs = json.loads(out.stdout.strip().splitlines()[-1])
+    code = _REFERENCE.format(slots=SLOTS, k=SPEC_K)
+    runs = run_reference(code, ROOT, one_thread=False)
     for ref in runs.values():
         for key in ("tokens", "ttft_steps"):
             ref[key] = {int(k): v for k, v in ref[key].items()}
