@@ -472,6 +472,7 @@ def main(argv=None) -> int:
 
     from _family_scales import ARCHS as FAMILIES
     from _family_scales import FAMILY_SCALES, WINDOW, WINDOWED, family_config
+    from _cow_fork import forced_forks
     from repro_torch import configs as CONFIGS
     from repro_torch.core import workloads as WL
     from repro_torch.core.dataflow import Dataflow
@@ -527,7 +528,7 @@ def main(argv=None) -> int:
     #: K3 and K5 checks, timing rows), by slice and phase: the families
     #: since qwen1.5 and the dense path
     added_s: dict = {"families": {}, "dense": {}, "resilience": {},
-                     "profile": {}, "moe": {}}
+                     "profile": {}, "moe": {}, "mla": {}}
 
     def added(phase, t0, slice_="families"):
         got = added_s[slice_]
@@ -729,7 +730,17 @@ def main(argv=None) -> int:
     # expert's gate/up and down, and the head (N, K)
     moe_nk = [(5120, 5120), (1024, 5120), (16, 5120), (8192, 5120),
               (5120, 8192), (202048, 5120)]
-    HEADS = (151936, 50280, 65024, 256000, 32000, 202048)
+    # mla_path's deepseek-v2 (N, K): wq_a, wq_b, wkv_a, wo, the wk_b / wv_b
+    # decompression, the router, the 2 shared experts' gate/up and down,
+    # the first block's MLP and the untied head
+    mla_nk = [(1536, 5120), (24576, 1536), (576, 5120), (5120, 16384),
+              (16384, 512), (160, 5120), (3072, 5120), (5120, 3072),
+              (12288, 5120), (5120, 12288), (102400, 5120)]
+    #: the (N, K) of mla_path's int8 leaves (K3 under --quant scheduled)
+    mla_int8_nk = [(24576, 1536), (5120, 16384), (16384, 512),
+                   (3072, 5120), (5120, 3072), (12288, 5120),
+                   (5120, 12288)]
+    HEADS = (151936, 50280, 65024, 256000, 32000, 202048, 102400)
 
     def gemm_inputs(M, N, K, dtype, seed):
         # a ~ N(0, 1/K), b ~ N(0, 1): products of order 1, as after RMSNorm
@@ -800,6 +811,17 @@ def main(argv=None) -> int:
                   for v in variants]
         cases += [(s, torch.bfloat16, ("scheduled", None, None))
                   for s in moe_shapes]
+        # mla_path's GEMMs at decode rows and, but for the head, chunk rows
+        # (8 x 256) under every variant; as the engine calls them, and the
+        # chunk step's decompression over the gathered table (8 x 1024
+        # rows)
+        n_mla = len(cases)
+        mla_shapes = [(M, N, K) for N, K in mla_nk for M in (8, 2048)
+                      if M == 8 or N not in HEADS]
+        cases += [(s, torch.bfloat16, v) for s in mla_shapes
+                  for v in variants]
+        cases += [(s, torch.bfloat16, ("scheduled", None, None))
+                  for s in mla_shapes + [(8192, 16384, 512)]]
         sched = ScheduleCache()
         rows, worst = [], {}
         for i, ((M, N, K), dtype, (name, df, fold)) in enumerate(cases):
@@ -862,7 +884,9 @@ def main(argv=None) -> int:
                          "bit_equal_repeat": same,
                          "ok": rel <= tol and same})
             del a, b, got, want
-            if i >= n_moe:
+            if i >= n_mla:
+                added("k2_vs_plain", t0, "mla")
+            elif i >= n_moe:
                 added("k2_vs_plain", t0, "moe")
             elif i >= n_dense:
                 added("k2_vs_plain", t0, "dense")
@@ -956,6 +980,14 @@ def main(argv=None) -> int:
         cases += [((M, N, K), torch.bfloat16, False, None)
                   for M in (8, 2048) for N, K in moe_nk
                   if N != 16 and (M == 8 or N not in HEADS)]
+        # mla_path's int8 leaves at decode and chunk rows, the
+        # decompression over the gathered table (8 x 1024 rows) and the
+        # head's (D, V) payload at 8 rows
+        n_mla = len(cases)
+        cases += [((M, N, K), torch.bfloat16, False, None)
+                  for M in (8, 2048) for N, K in mla_int8_nk]
+        cases += [((8192, 16384, 512), torch.bfloat16, False, None),
+                  ((8, 102400, 5120), torch.bfloat16, False, None)]
         rows, worst = [], {}
         for i, ((M, N, K), dtype, unaligned, tile) in enumerate(cases):
             t0 = time.perf_counter()
@@ -995,7 +1027,9 @@ def main(argv=None) -> int:
                          and same and route == want_route
                          and ran[route] == (2 if got is not again else 1)})
             del x, w8, sc, got, again, want
-            if i >= n_moe:
+            if i >= n_mla:
+                added("k3_vs_plain", t0, "mla")
+            elif i >= n_moe:
                 added("k3_vs_plain", t0, "moe")
             elif i >= n_fam:
                 added("k3_vs_plain", t0)
@@ -3912,6 +3946,25 @@ def main(argv=None) -> int:
         del w
         timing["moe_experts_bmm"] = bmm_rows
 
+    #: deepseek-v2's GEMMs timed (tests/test_torch_kernels_gpu.py holds the
+    #: same shapes): wq_a, wq_b, wkv_a, wo at decode rows, a decompression
+    #: (wk_b / wv_b over 2048 gathered rows), the shared experts' gate and
+    #: the first block's MLP gate
+    MLA_TIMED = [(8, 1536, 5120), (8, 24576, 1536), (8, 576, 5120),
+                 (8, 5120, 16384), (2048, 16384, 512), (8, 3072, 5120),
+                 (8, 12288, 5120)]
+
+    def mla_timing(sched, flush):
+        """This slice's rows: K2 at ``MLA_TIMED`` (bf16) and K3 at those
+        of them whose weight is int8 under --quant (wq_b, wo, the
+        decompression, the shared expert, the first block's MLP)."""
+        timing["mpgemm_mla_shapes"] = k2_timing(MLA_TIMED, sched, flush)
+        int8 = [s_ for s_ in MLA_TIMED if s_[1:] in mla_int8_nk]
+        rows = QT.measure(int8, dev, flush, iters=50)
+        for r in rows:
+            print(f"[{card}] " + QT.describe(r))
+        timing["quant_matmul_mla_shapes"] = rows
+
     def p_timing():
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
         # K1 and K1-int8: one layer's decode at B=8, bf16 q, contexts of
@@ -3994,6 +4047,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         moe_timing(sched, flush)
         added("timing", t0, "moe")
+        t0 = time.perf_counter()
+        mla_timing(sched, flush)
+        added("timing", t0, "mla")
 
         # K3: every int8 projection shape of the path, bf16 x, with its
         # route and plan (launch/quant_tiles.py), and the host time a call
@@ -4610,15 +4666,17 @@ def main(argv=None) -> int:
                 "paged_decode_int8": k1 if quant else 0,
                 "ssd_intra": 0}
 
-    def drops_by_step(drops, L):
+    def drops_by_step(drops, L, decode_slots=8):
         """(decode-step drops, per chunk step [drops, slots, capacity])
-        from ``moe.record_drops``'s entries, L consecutive a step."""
+        from ``moe.record_drops``'s entries, L consecutive a step; a
+        decode step's entries have ``decode_slots`` expanded slots (8
+        slots x top_k)."""
         steps = [drops[i:i + L] for i in range(0, len(drops), L)]
         decode, chunks = 0, []
         for st in steps:
             n = int(sum(int(d) for _s, _c, d in st))
             slots, cap = st[0][0], st[0][1]
-            if slots == 8:              # 8 slots x 1 token: a decode step
+            if slots == decode_slots:   # 8 slots x top_k: a decode step
                 decode += n
             else:
                 chunks.append([n, slots, cap])
@@ -4816,6 +4874,311 @@ def main(argv=None) -> int:
                 raise AssertionError(f"degenerate greedy output: {distinct}")
         rep["moe_small"] = out
 
+    # -- 15. MLA and deepseek-v2 ------------------------------------------
+    #: the first block and 4 of its 60 MoE layers: ~32 GiB of bf16 weights
+    MLA_LAYERS = 4
+    MLA_CHUNK = 256
+
+    def mla_config():
+        return dataclasses.replace(CONFIGS.get("deepseek_v2_236b"),
+                                   n_layers=MLA_LAYERS).validate()
+
+    def mla_want(cfg, r, backend, quant):
+        """A step's launches, with L MoE layers and the first block: an
+        MLA layer runs wq_a, wq_b, wkv_a and wo (and, in a chunk step, the
+        wk_b and wv_b decompressions); a MoE layer the router and the
+        shared experts' gate, up and down; the first block its MLP's
+        three; then the head.  fp scheduled: all through K2, (8L + 8) a
+        decode step and (10L + 10) a chunk step.  int8 scheduled: wq_a,
+        wkv_a and the router through K2 (3L + 2), the rest through K3
+        ((5L + 6) decode, (7L + 8) chunk; the absorbed decode dequantizes
+        wk_b / wv_b into its einsums).  None under xla.  K1 never: MLA
+        reads its latent pool through the gather path."""
+        L = cfg.n_layers
+        dec, chk = r["decode_steps"], r["chunk_steps"]
+        k2 = k3 = 0
+        if backend == "scheduled" and quant:
+            k2 = (3 * L + 2) * (dec + chk)
+            k3 = (5 * L + 6) * dec + (7 * L + 8) * chk
+        elif backend == "scheduled":
+            k2 = (8 * L + 8) * dec + (10 * L + 10) * chk
+        return {"mpgemm": k2, "quant_matmul": k3, "paged_decode": 0,
+                "paged_decode_int8": 0, "ssd_intra": 0}
+
+    def combine_repeats(cfg, params, rows):
+        """``moe_apply`` of MoE layer 0 twice on the same (rows, D) input:
+        whether the two outputs are bit-equal (the top-k combine's order
+        on the card)."""
+        from repro_torch.models import moe as MOE
+        p = tree_map(lambda _p, a: a[0], params["blocks"][0]["moe"])
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        x = torch.randn(1, rows, cfg.d_model, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        a, _ = MOE.moe_apply(p, x, cfg)
+        b, _ = MOE.moe_apply(p, x, cfg)
+        return {"rows": rows, "bit_equal": bool(torch.equal(a, b)),
+                "max_abs_diff": (a.float() - b.float()).abs().max().item()}
+
+    def p_mla():
+        """deepseek-v2 at published widths, the first block and 4 MoE
+        layers: 8 requests of 64-512 prompt tokens and 32 new, 8 slots,
+        max_len 1024, chunk 256, under both backends, fp and then int8
+        (the engine's default policy; the latent pool stays bf16), the
+        pool audit after every step; the fp scheduled run repeated (the
+        same tokens) and ``moe_apply`` twice on one input (bit-equal); one
+        chunk step and one decode step profiled."""
+        from repro_torch.models import moe as MOE
+        t_phase = time.perf_counter()
+        m2_params.clear()
+        free_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        free_gib = torch.cuda.mem_get_info(dev)[0] / 2**30
+        cfg0 = mla_config()
+        t0 = time.perf_counter()
+        params = init_layerwise(cfg0, args.seed)
+        torch.cuda.synchronize()
+        n_full = [0]
+        tree_map(lambda _p, d: n_full.__setitem__(
+            0, n_full[0] + int(np.prod(d.shape))),
+            N.param_defs(CONFIGS.get("deepseek_v2_236b")))
+        full_gb = n_full[0] * 2 / 2**30
+        m = cfg0.mla
+        latent_b = (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+        gqa_b = cfg0.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                + m.v_head_dim) * 2
+        out = {"layers": MLA_LAYERS, "of_layers": 60, "first_block": True,
+               "free_gib_before": free_gib,
+               "weights_gib": param_bytes(params) / 2**30,
+               "full_model_gib": full_gb,
+               "init_s": time.perf_counter() - t0,
+               "latent_bytes_per_token_layer": latent_b,
+               "gqa_bytes_per_token_layer": gqa_b}
+        print(f"[{card}] deepseek-v2-236b at published widths, depth cut "
+              f"from 60 MoE layers to {MLA_LAYERS} (and the dense first "
+              f"block): weights {out['weights_gib']:.1f} GiB in bf16 "
+              f"against {full_gb:.1f} GiB for the whole model, built layer "
+              f"by layer on the card in {out['init_s']:.1f} s "
+              f"({free_gib:.1f} GiB free before)")
+        reqs = requests(np.random.default_rng(args.seed), 8, 64, 513, 32,
+                        cfg0.vocab)
+        qparams = None
+        n_layers = cfg0.n_layers + 1
+        for quant in (False, True):
+            qcfg = dataclasses.replace(cfg0, quant_serving=quant)
+            if quant:
+                free_memory()
+                qparams = serving_quant_params(qcfg, params)
+                out["int8_weights_gib"] = param_bytes(qparams) / 2**30
+            tree = qparams if quant else params
+            warm = requests(np.random.default_rng(99), 2, 40, 41, 4,
+                            cfg0.vocab)
+            ContinuousEngine(qcfg, tree, slots=8, max_len=1024,
+                             prefill_chunk=MLA_CHUNK, device=dev).run(warm)
+            torch.cuda.synchronize()
+            runs = [("xla", ""), ("scheduled", "")]
+            if not quant:
+                runs.append(("scheduled", " repeat"))
+            for b, again in runs:
+                cfg = dataclasses.replace(qcfg, gemm_backend=b)
+                tag = f"{'int8' if quant else 'fp'} {b}{again}"
+                with MOE.record_drops() as drops:
+                    eng, res, wall, counts = serve(
+                        cfg, tree, reqs, 8, 1024, audit=True,
+                        prefill_chunk=MLA_CHUNK)
+                r = summary(eng, res, wall)
+                r["launches"] = counts
+                r["tokens"] = [q.tokens.tolist() for q in res]
+                st = eng.pool.stats()
+                r["quantized_pool"] = st["quantized"]
+                pool_shape = eng.caches["first"]["c_kv"].shape
+                kv_tok = eng.kv_bytes()["allocated"] / (
+                    pool_shape[0] * pool_shape[1] * n_layers)
+                r["kv_bytes_per_token_layer"] = kv_tok
+                want = mla_want(cfg, r, b, quant)
+                got = {k: counts[k] for k in want}
+                r["expected_launches"] = want
+                decode_drops, chunk_drops = drops_by_step(
+                    drops, cfg.n_layers, 8 * cfg.moe.top_k)
+                r["decode_drops"], r["chunk_drops"] = decode_drops, \
+                    chunk_drops
+                out[tag] = r
+                print(f"[{card}] deepseek-v2 {MLA_LAYERS}+1 layers, {tag}: "
+                      f"{r['ok']}/{r['requests']} ok, {r['new_tokens']} "
+                      f"tokens in {r['wall_s']:.2f} s = "
+                      f"{r['tok_per_s']:.1f} tok/s, TTFT p50 "
+                      f"{r['ttft_p50_ms']:.1f} ms, TPOT p50 "
+                      f"{r['tpot_p50_ms']:.2f} ms, {r['decode_steps']} "
+                      f"decode + {r['chunk_steps']} chunk steps; launches "
+                      f"{got} (expected {want}); dropped (token, expert) "
+                      f"slots: decode steps {decode_drops}, each chunk "
+                      f"step [dropped, slots, capacity] {chunk_drops}; "
+                      f"latent pool {kv_tok:.0f} B a token and layer "
+                      f"(bf16; a GQA pool at 128 heads {gqa_b} B); "
+                      f"schedule misses {r['schedule_misses']}")
+                bad = []
+                if r["ok"] != 8 or r["new_tokens"] != 8 * 32:
+                    bad.append(f"{r['ok']}/8 ok, {r['new_tokens']} tokens")
+                if got != want or not r["decode_steps"] \
+                        or not r["chunk_steps"]:
+                    bad.append(f"launches {got}, expected {want}")
+                if counts["mpgemm_by_route"]["cuda_core"] \
+                        or counts["quant_matmul_by_route"]["cuda_core"]:
+                    bad.append(f"a bf16 GEMM took the CUDA-core route: "
+                               f"{counts}")
+                if decode_drops:
+                    bad.append(f"a decode step dropped {decode_drops} slots")
+                if len(chunk_drops) != r["chunk_steps"]:
+                    bad.append(f"{len(chunk_drops)} chunk-step drop "
+                               f"records for {r['chunk_steps']} chunk steps")
+                if r["quantized_pool"] or kv_tok != latent_b:
+                    bad.append(f"pool int8 {r['quantized_pool']}, "
+                               f"{kv_tok} B a token and layer")
+                if bad:
+                    raise AssertionError(f"deepseek {tag}: " + "; ".join(bad))
+                del eng
+            tag = "int8" if quant else "fp"
+            tx, ts = (out[f"{tag} {b}"]["tokens"]
+                      for b in ("xla", "scheduled"))
+            same = sum(x == y for a, c in zip(tx, ts) for x, y in zip(a, c))
+            out[f"{tag} agreement"] = same / sum(len(a) for a in tx)
+            print(f"deepseek {tag} greedy agreement xla vs scheduled (bf16, "
+                  f"not gated): {same}/{sum(len(a) for a in tx)}")
+        rep_same = out["fp scheduled"]["tokens"] \
+            == out["fp scheduled repeat"]["tokens"]
+        combine = [combine_repeats(cfg0, params, n) for n in (8, 2048)]
+        out["repeat_tokens_equal"] = rep_same
+        out["combine_repeats"] = combine
+        print(f"deepseek fp scheduled run repeated on the same requests: "
+              f"tokens equal {rep_same}; top-6 combine of moe_apply twice "
+              f"on one input: {combine}")
+        if not rep_same or not all(c["bit_equal"] for c in combine):
+            raise AssertionError("deepseek: a repeat on the same inputs "
+                                 "gave other tokens or another combine")
+        # logits of a short prefill, finite, under both backends
+        cfgs = {b: dataclasses.replace(cfg0, gemm_backend=b)
+                for b in ("xla", "scheduled")}
+        lx, ls = prefill_logits(cfgs, params, np.random.default_rng(5),
+                                "deepseek")
+        if tuple(lx.shape) != (2, cfg0.vocab) or not (
+                torch.isfinite(lx).all() and torch.isfinite(ls).all()):
+            raise AssertionError("deepseek logits not finite / bad shape")
+        # one chunk step (8 x 256 rows) and one decode step profiled
+        cfg = dataclasses.replace(cfg0, gemm_backend="scheduled")
+        eng = ContinuousEngine(cfg, params, slots=8, max_len=1024,
+                               prefill_chunk=MLA_CHUNK, device=dev)
+        plen = 5 * MLA_CHUNK // 2
+        for r in requests(np.random.default_rng(7), 8, plen, plen + 1, 16,
+                          cfg.vocab):
+            eng.submit(r)
+        chunk = measure(eng, 1)
+        eng.step()
+        eng.step()
+        decode = measure(eng, 5)
+        out["step_profile"] = {"chunk": chunk, "decode": decode}
+        for kind_, pr in (("chunk", chunk), ("decode", decode)):
+            show(f"deepseek-v2 ({MLA_LAYERS}+1 layers) {kind_} step, "
+                 f"scheduled", pr)
+            print(f"deepseek {kind_} step: top aten ops by device time: "
+                  + "; ".join(f"{k} {t:.2f} ms x{c}"
+                              for k, t, c in pr["top_ops"]))
+        expert_bytes = 3 * cfg.moe.n_experts * cfg.d_model \
+            * cfg.moe.d_ff_expert * 2 * cfg.n_layers
+        out["decode_expert_read_bound_ms"] = expert_bytes / 3.35e12 * 1e3
+        print(f"deepseek decode step: the routed experts' weights "
+              f"({expert_bytes / 1e9:.1f} GB) bound it at "
+              f"{out['decode_expert_read_bound_ms']:.2f} ms; device time "
+              f"{decode['device_ms']:.2f} ms")
+        if decode["k1_launches"] or chunk["k1_launches"] \
+                or decode["k1_int8_launches"]:
+            raise AssertionError(f"deepseek profiled steps launched K1: "
+                                 f"{decode['k1_launches']} / "
+                                 f"{chunk['k1_launches']}")
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[{card}] deepseek phase peak memory "
+              f"{out['peak_gib']:.1f} GiB")
+        del eng, params, qparams
+        free_memory()
+        out["seconds"] = time.perf_counter() - t_phase
+        rep["mla"] = out
+
+    def p_mla_small():
+        """Scaled-down deepseek-v2 (MLA, 8 experts top-2, 2 shared, the
+        first block; fp32) at ``FAMILY_SCALES`` (the CPU parity tests'
+        x4): greedy tokens identical across backends, fp and int8 (every
+        projection), on the paged engine (a shared-prefix trace), the
+        dense engine and the wave; paged equal to dense; ngram
+        speculation and forced copy-on-write forks give the paged
+        tokens."""
+        base = CONFIGS.get("deepseek_v2_236b").scaled_down()
+        emb, rest = FAMILY_SCALES["deepseek_v2_236b"]
+        params = N.init(base, args.seed, dev)
+        params = {k: tree_map(lambda _p, a, s=(emb if k == "embed"
+                                               else rest): a * s, v)
+                  for k, v in params.items()}
+        rng = np.random.default_rng(args.seed + 1)
+        reqs = requests(rng, 4, 4, 60, 16, base.vocab, prefix=40) \
+            + requests(rng, 4, 4, 60, 16, base.vocab)
+        reqs = [dataclasses.replace(r, rid=i) for i, r in enumerate(
+            reqs[0::2] + reqs[1::2])]
+        qp = QuantPolicy(min_size=0)
+        out = {}
+
+        def toks_of(res, what):
+            if not all(r.status == "ok" and len(r.tokens) == 16
+                       for r in res):
+                raise AssertionError(f"scaled-down deepseek {what}: a "
+                                     f"request failed")
+            return [r.tokens.tolist() for r in res]
+        for quant in (False, True):
+            qbase = dataclasses.replace(base, quant_serving=quant)
+            tag = "int8" if quant else "fp"
+            got, extra = {}, {}
+            for b in ("xla", "scheduled"):
+                cfg = dataclasses.replace(qbase, gemm_backend=b)
+                eng, res, _, _c = serve(cfg, params, reqs, 2, 160,
+                                        audit=True, prefill_chunk=32,
+                                        quant_policy=qp)
+                got[f"paged {b}"] = toks_of(res, f"{tag} paged {b}")
+                extra[f"shared_token_hits {b}"] = \
+                    eng.pool.stats()["shared_token_hits"]
+                eng = ContinuousEngine(cfg, params, slots=2, max_len=160,
+                                       paged=False, quant_policy=qp,
+                                       device=dev)
+                got[f"dense {b}"] = toks_of(eng.run(reqs), f"{tag} dense")
+                wave = WaveEngine(cfg, params, slots=2, max_len=160,
+                                  device=dev)
+                got[f"wave {b}"] = toks_of(wave.run(reqs), f"{tag} wave")
+                eng, res, _, _c = serve(cfg, params, reqs, 2, 160,
+                                        audit=True, prefill_chunk=32,
+                                        quant_policy=qp, spec="ngram",
+                                        spec_k=4)
+                got[f"ngram {b}"] = toks_of(res, f"{tag} ngram")
+                extra[f"spec_drafted {b}"] = eng.spec_drafted
+                eng = forced_forks(ContinuousEngine(
+                    cfg, params, slots=2, max_len=160, audit=True,
+                    prefill_chunk=32, quant_policy=qp, device=dev))
+                got[f"forked {b}"] = toks_of(eng.run(reqs), f"{tag} forked")
+                extra[f"cow_forks {b}"] = eng.pool.stats()["cow_forks"]
+            ref = got["paged xla"]
+            same = {k: v == (got["wave xla"] if k.startswith("wave")
+                             else ref) for k, v in got.items()}
+            distinct = [len(set(t)) for t in ref]
+            out[tag] = {"identical": same, "distinct_per_request": distinct,
+                        **extra}
+            print(f"scaled-down fp32 deepseek-v2 {tag}, weights x{rest:g}: "
+                  f"greedy tokens equal to the paged xla run's (the wave's "
+                  f"to its xla run's): {same}; {extra}; distinct tokens a "
+                  f"request {distinct}")
+            if not all(same.values()):
+                raise AssertionError(f"scaled-down deepseek {tag}: tokens "
+                                     f"differ: {same}")
+            if min(distinct) < 4:
+                raise AssertionError(f"degenerate greedy output: {distinct}")
+            if min(extra.values()) <= 0:
+                raise AssertionError(f"deepseek {tag}: no shared prefix, "
+                                     f"fork or draft: {extra}")
+        rep["mla_small"] = out
+
     # -- 14. the paper's tables, on a machine without JAX ---------------------
     def p_paper_tables():
         """``repro_torch.launch.paper_tables``: every table's derived
@@ -4876,8 +5239,10 @@ def main(argv=None) -> int:
                   ("moe_path", p_moe),
                   ("moe_scaled_down_fp32", p_moe_small),
                   ("paper_tables", p_paper_tables))
+    mla_phases = (("mla_path", p_mla),
+                  ("mla_scaled_down_fp32", p_mla_small))
     phases += family_phases + dense_phases + resilience_phases + \
-        profile_phases + moe_phases + (("timing", p_timing),
+        profile_phases + moe_phases + mla_phases + (("timing", p_timing),
                                        ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
@@ -4894,7 +5259,8 @@ def main(argv=None) -> int:
               "dense": {n for n, _ in dense_phases},
               "resilience": {n for n, _ in resilience_phases},
               "profile": {n for n, _ in profile_phases},
-              "moe": {n for n, _ in moe_phases}}
+              "moe": {n for n, _ in moe_phases},
+              "mla": {n for n, _ in mla_phases}}
     secs = {n: v["seconds"] for n, v in rep["phases"].items()}
     rep["time_split"] = {}
     for sl, names in slices.items():

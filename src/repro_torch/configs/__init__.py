@@ -12,7 +12,8 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: list[str] = ["qwen2_0_5b", "mamba2_2_7b", "qwen1_5_4b",
                         "chatglm3_6b", "gemma2_9b", "llava_next_mistral_7b",
-                        "zamba2_7b", "llama4_scout_17b_a16e"]
+                        "zamba2_7b", "llama4_scout_17b_a16e",
+                        "deepseek_v2_236b"]
 
 #: accepted aliases (the dashed ids)
 ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b",
@@ -22,7 +23,8 @@ ALIASES: dict[str, str] = {"qwen2-0.5b": "qwen2_0_5b",
                             "gemma2-9b": "gemma2_9b",
                             "llava-next-mistral-7b": "llava_next_mistral_7b",
                             "zamba2-7b": "zamba2_7b",
-                            "llama4-scout-17b-16e": "llama4_scout_17b_a16e"}
+                            "llama4-scout-17b-16e": "llama4_scout_17b_a16e",
+                            "deepseek-v2-236b": "deepseek_v2_236b"}
 
 __all__ = ["ALIASES", "ARCH_IDS", "get"]
 

@@ -350,7 +350,14 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def gather_gemm_shapes(cfg, block_size: int) -> list[tuple[int, int, int]]:
     """The two per-block p-GEMMs of the paged-decode chain, per KV head:
-    scores (G, block_size, hd) and weighted values (G, hd, block_size)."""
+    scores (G, block_size, hd) and weighted values (G, hd, block_size).
+    MLA decodes in latent space (the absorbed path), so its two contract
+    over kv_lora_rank + rope dim: (H, block_size, r + rp) and (H, r,
+    block_size)."""
+    if cfg.mla is not None:
+        r = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        return [(cfg.n_heads, block_size, r),
+                (cfg.n_heads, cfg.mla.kv_lora_rank, block_size)]
     G = cfg.n_heads // cfg.n_kv_heads
     return [(G, block_size, cfg.hd), (G, cfg.hd, block_size)]
 

@@ -1,5 +1,5 @@
-"""GQA attention (port of ``repro.models.attention``, MLA aside): the
-full sequence, dense KV stripes, and the block-paged KV pool.
+"""GQA and MLA attention (port of ``repro.models.attention``): the full
+sequence, dense KV stripes, and the block-paged KV pool.
 
 Shapes: x (B, S, D); q (B, S, H, hd).  Three layouts of the KV:
 
@@ -27,6 +27,14 @@ head) scale sidecars ``k_scale`` / ``v_scale``: ``_paged_write_quant``
 quantizes each written row on the way in, decode runs the int8 kernel
 variant, and the prefill gather dequantizes through the compute dtype
 (the reference's rounding).
+
+MLA (deepseek-v2, ``mla_attention``) caches the latent ``c_kv`` (.., r)
+and the one shared rope key ``k_pe`` (.., rp) in the compute dtype on the
+same three layouts (no int8 form).  Its paged reads gather the slot's
+blocks, never the GQA decode kernel.  A decode step (S == 1 over a
+cache) scores in latent space: ``wk_b`` folds into the query and ``wv_b``
+into the output, so the cache is never decompressed; chunks, verify
+steps and the forward decompress k and v per head from the latent.
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import paged_attention as PA
-from repro_torch.models.config import BlockKind, ModelConfig, RopeMode
+from repro_torch.models.config import BlockKind, MLAConfig, ModelConfig, \
+    RopeMode
 from repro_torch.models.layers import ParamDef, apply_rope, dense, \
-    rope_tables, softcap
+    rms_norm, rope_tables, softcap
 
 NEG_INF = -1e30
 
@@ -51,6 +60,22 @@ def attn_defs(cfg: ModelConfig) -> dict:
         defs["bk"] = ParamDef((KV * hd,), init="zeros")
         defs["bv"] = ParamDef((KV * hd,), init="zeros")
     return defs
+
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim
+    return {
+        "wq_a": ParamDef((d, m.q_lora_rank)),
+        "q_norm": ParamDef((m.q_lora_rank,), init="zeros"),
+        "wq_b": ParamDef((m.q_lora_rank, H * (qk + m.qk_rope_head_dim))),
+        "wkv_a": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), init="zeros"),
+        "wk_b": ParamDef((m.kv_lora_rank, H * qk)),
+        "wv_b": ParamDef((m.kv_lora_rank, H * m.v_head_dim)),
+        "wo": ParamDef((H * m.v_head_dim, d)),
+    }
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -256,11 +281,100 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  backend=backend), new_cache
 
 
+def _latent_weight(w, r: int, H: int, dtype: torch.dtype) -> torch.Tensor:
+    """A decompression weight (r, H * d) as (r, H, d) in ``dtype``; a
+    QuantTensor dequantizes straight to ``dtype``, as the reference's
+    absorbed decode does."""
+    w = w.dequant(dtype) if hasattr(w, "dequant") else w.to(dtype)
+    return w.reshape(r, H, -1)
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  pos_offset: torch.Tensor | int = 0,
+                  cache: dict | None = None,
+                  block_table: torch.Tensor | None = None,
+                  pos_advance: torch.Tensor | None = None,
+                  backend=None) -> tuple[torch.Tensor, dict | None]:
+    """Multi-head latent attention over the full sequence, dense stripes
+    or the paged pool (the layouts of :func:`gqa_attention`), caching
+    ``c_kv`` and ``k_pe`` only.  The rope covers the ``qk_rope_head_dim``
+    dims; the scale is (qk_nope + qk_rope) ** -0.5 on every path.  With a
+    cache, S == 1 runs the absorbed decode (latent scores over
+    ``[c_kv ; k_pe]``, values ``c_kv``, then ``wv_b``); otherwise k and v
+    are decompressed over the whole gathered table."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    H, eps = cfg.n_heads, cfg.norm_eps
+    qk, rp, vd, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+
+    q_lat = rms_norm(dense(x, p["wq_a"], backend=backend), p["q_norm"], eps)
+    q = dense(q_lat, p["wq_b"], backend=backend).view(B, S, H, qk + rp)
+    q_nope, q_pe = q[..., :qk], q[..., qk:]
+    kv_a = dense(x, p["wkv_a"], backend=backend)          # (B, S, r + rp)
+    c_kv = rms_norm(kv_a[..., :r], p["kv_norm"], eps)
+    k_pe = kv_a[..., r:]                                  # one shared head
+    cos, sin = rope_tables(S, rp, cfg.rope_theta, pos_offset,
+                           device=x.device)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is None:
+        c_att, pe_att, kv_valid, new_cache = c_kv, k_pe, None, None
+    elif block_table is None:
+        kv_valid = cache["pos"] + S
+        c_att = _cache_write(cache["c_kv"], c_kv, cache["pos"])
+        pe_att = _cache_write(cache["k_pe"], k_pe, cache["pos"])
+        new_cache = {"c_kv": c_att, "k_pe": pe_att, "pos": kv_valid}
+    else:
+        adv = S if pos_advance is None else pos_advance
+        kv_valid = cache["pos"] + adv
+        ckv = _paged_write(cache["c_kv"], c_kv, cache["pos"], block_table)
+        cpe = _paged_write(cache["k_pe"], k_pe, cache["pos"], block_table)
+        new_cache = {"c_kv": ckv, "k_pe": cpe, "pos": kv_valid}
+        c_att = PA.gather_pool_blocks(ckv, block_table)
+        pe_att = PA.gather_pool_blocks(cpe, block_table)
+    scale = (qk + rp) ** -0.5
+    flash_kw = dict(scale=scale, causal=cfg.causal, window=None,
+                    q_offset=pos_offset, kv_valid=kv_valid,
+                    logit_cap=cfg.attn_logit_softcap,
+                    block=cfg.attn_block_kv)
+
+    if S == 1 and cache is not None:
+        # absorbed decode: the query meets the latent cache through wk_b,
+        # the latent output leaves through wv_b
+        dt = q_nope.dtype
+        q_abs = torch.einsum("bshq,rhq->bshr", q_nope,
+                             _latent_weight(p["wk_b"], r, H, dt))
+        q_eff = torch.cat([q_abs, q_pe], dim=-1)
+        k_eff = torch.cat([c_att, pe_att], dim=-1)
+        out_lat = _flash(q_eff.reshape(B, 1, 1, H, r + rp),
+                         k_eff[:, :, None, :], c_att[:, :, None, :],
+                         **flash_kw)
+        out = torch.einsum("bshr,rhv->bshv", out_lat.reshape(B, 1, H, r),
+                           _latent_weight(p["wv_b"], r, H, dt))
+        return dense(out.reshape(B, 1, H * vd), p["wo"],
+                     backend=backend), new_cache
+
+    T = c_att.shape[1]
+    k_nope = dense(c_att, p["wk_b"], backend=backend).view(B, T, H, qk)
+    vv = dense(c_att, p["wv_b"], backend=backend).view(B, T, H, vd)
+    k_eff = torch.cat([k_nope, pe_att[:, :, None, :].expand(B, T, H, rp)],
+                      dim=-1)
+    q_eff = torch.cat([q_nope, q_pe], dim=-1)
+    out = _flash(q_eff.reshape(B, S, H, 1, qk + rp), k_eff, vv, **flash_kw)
+    return dense(out.reshape(B, S, H * vd), p["wo"],
+                 backend=backend), new_cache
+
+
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype, device: torch.device) -> dict:
     """Empty dense stripes of one attention block: k/v (batch, max_len,
-    KV, hd) in ``dtype`` and a scalar ``pos``.  No int8 form under
+    KV, hd) in ``dtype`` and a scalar ``pos`` (MLA: c_kv (batch, max_len,
+    r) and k_pe (batch, max_len, rp)).  No int8 form under
     ``cfg.quant_kv``, as in the reference (int8 KV is the pool's)."""
+    if cfg.mla is not None:
+        return _latent_cache(cfg, (batch, max_len), dtype, device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -272,7 +386,10 @@ def make_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Empty per-layer paged pool (no batch dim) plus its cursor leaf;
     under ``cfg.quant_kv`` int8 pools with fp32 scale sidecars (initialised
     to 1.0) sharing the (num_blocks, block_size) layout, so block tables
-    and COW copies address them like the payload."""
+    and COW copies address them like the payload.  An MLA pool holds
+    c_kv (num_blocks, block_size, r) and k_pe (.., rp) in ``dtype``."""
+    if cfg.mla is not None:
+        return _latent_cache(cfg, (num_blocks, block_size), dtype, device)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
     if cfg.quant_kv:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -284,4 +401,14 @@ def make_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                 "pos": torch.zeros((), dtype=torch.int32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _latent_cache(cfg: ModelConfig, lead: tuple[int, int],
+                  dtype: torch.dtype, device: torch.device) -> dict:
+    m = cfg.mla
+    return {"c_kv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                                device=device),
+            "k_pe": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dtype,
+                                device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}

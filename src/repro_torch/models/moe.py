@@ -6,10 +6,11 @@ Tokens are expanded ``top_k`` times, sorted by expert id (a stable sort,
 as ``jnp.argsort``: the order of dropping depends on it), and each expert
 keeps the first ``capacity`` of its slots; the (E, C, D) dispatch runs
 the routed experts as three batched products (``torch.bmm``: the
-reference computes them outside any Pallas kernel), and the
-gate-weighted outputs are added back per token.  Every shape is static:
-experts are counted with ``scatter_add_``, never ``bincount`` or
-``nonzero``, so the layer runs under ``FakeTensorMode``
+reference computes them outside any Pallas kernel), and each token sums
+its k gate-weighted outputs in a fixed order (the same sums run to run
+on the card; within 1e-4 of the reference's scatter-add order).  Every
+shape is static: experts are counted with ``scatter_add_``, never
+``bincount`` or ``nonzero``, so the layer runs under ``FakeTensorMode``
 (``launch.step_cost``) and reads no device value.  The router and the
 shared expert go through ``layers.dense``, so they run K2 under the
 scheduled backend and K3 where a leaf is int8.
@@ -121,12 +122,18 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, backend=None
     u = torch.bmm(gathered, p["wi_up"].to(dt))
     y = torch.bmm(g * u, p["wo"].to(dt))
 
-    # gate-weighted combine: empty slots carry gate 0 and add into the
-    # pad row T, which is cut off
+    # gate-weighted combine in a fixed order: each kept slot's output goes
+    # back to its expanded index (written once; the empty slots' zero
+    # rows all land in the extra row T*K, which is cut off, and a dropped
+    # slot's row stays zero), then each token sums its k rows in top-k
+    # order.  An ``index_add_`` into the tokens would order a token's
+    # adds by the card's atomics: with k >= 3 its sums, and so the greedy
+    # tokens, would move from run to run
     pad_gates = torch.cat([flat_gates, flat_gates.new_zeros(1)])
     slot_gate = pad_gates[gather_idx.clamp_max(T * K)]
     y = y.reshape(E * C, D) * slot_gate[:, None].to(y.dtype)
-    out = y.new_zeros(T + 1, D).index_add_(0, token_of, y)[:T]
+    per_slot = y.new_zeros(T * K + 1, D).index_copy_(0, gather_idx, y)
+    out = per_slot[:T * K].view(T, K, D).sum(dim=1)
 
     if "shared" in p:
         out = out + mlp_apply(p["shared"], xf, cfg.act, backend=backend)

@@ -1,20 +1,25 @@
 """Network assembly, the full-sequence forward and the serving functions,
 dense and paged (port of ``repro.models.network`` without training):
-decoder stacks of ATTN and ATTN_LOCAL blocks (sandwich norms, scaled
-embeddings and softcaps by config; a dense MLP or, where ``cfg.moe``, the
-MoE FFN of ``models.moe``), attention-free MAMBA2 stacks, and zamba2's
+decoder stacks of ATTN and ATTN_LOCAL blocks (GQA or, where ``cfg.mla``,
+MLA; sandwich norms, scaled embeddings and softcaps by config; a dense
+MLP or, where ``cfg.moe``, the MoE FFN of ``models.moe``), with
+deepseek-v2's dense first block ahead of the groups where
+``cfg.first_layer_dense_ff``, attention-free MAMBA2 stacks, and zamba2's
 hybrid of MAMBA2 blocks, shared attention and a MAMBA2 tail.
 
 Parameters keep the reference's tree: ``{"embed": {"table"}, "final_norm",
 "blocks": (group,)}`` with a leading stacked group dim on every block
 leaf, and where the config asks for them ``lm_head``, ``vision_proj``,
-``tail_blocks`` (a tuple of unstacked blocks) and ``shared_attn`` (the
-``n_shared_attn_sets`` attention sets, stacked).  Blocks run group by
-group, each group's kinds in pattern order, as the reference's scan does.
-Dense cache trees (``init_caches``) keep its layout:
+``tail_blocks`` (a tuple of unstacked blocks), ``first_block`` (one
+unstacked block with a dense MLP of ``first_layer_dense_ff``) and
+``shared_attn`` (the ``n_shared_attn_sets`` attention sets, stacked).
+The first block runs first, then the groups, each group's kinds in
+pattern order, as the reference's scan does, then the tail.  Dense cache
+trees (``init_caches``) keep its layout:
 
-  ``{"groups": ({"k": (G, B, max_len, KV, hd), "v": ..., "pos": (G,)},
-  ...), "tail": ({"conv": (B, ...), "ssm": ...},)}``
+  ``{"first": {"k": (B, max_len, KV, hd), ...}, "groups": ({"k": (G, B,
+  max_len, KV, hd), "v": ..., "pos": (G,)}, ...), "tail": ({"conv": (B,
+  ...), "ssm": ...},)}``
 
 with a scalar ``pos`` a layer (``expand_cache_pos`` makes it (B,) a
 layer for the continuous engine's slots) and no int8 form.  Paged cache
@@ -26,13 +31,15 @@ trees keep its layout too:
 where k/v are POOL leaves shared by all slots (indexed through the block
 table) and ``pos`` the per-slot write cursors.  Under ``cfg.quant_kv`` k/v
 are int8 and the pool also holds the fp32 scale sidecars ``k_scale`` /
-``v_scale`` (G, nb, bs, KV).  A MAMBA2 position holds per-slot recurrent
-state instead, ``{"conv": (G, slots, K-1, conv_dim), "ssm": (G, slots, H,
-P, N)}``; leaves under ``"groups"`` carry the group dim first (slot or
-block axis 1), tail leaves none (axis 0).  An attention-free tree carries
-one top-level cursor ``"pos": (slots,)``.  The serving functions update
-the pool and slot-state tensors IN PLACE and return the tree with new
-cursors.
+``v_scale`` (G, nb, bs, KV).  An MLA pool holds the latent ``c_kv`` (G,
+nb, bs, r) and ``k_pe`` (G, nb, bs, rp) instead of k/v.  A MAMBA2
+position holds per-slot recurrent state instead, ``{"conv": (G, slots,
+K-1, conv_dim), "ssm": (G, slots, H, P, N)}``; leaves under ``"groups"``
+carry the group dim first (slot or block axis 1), tail and ``"first"``
+leaves none (axis 0; the first block's ``pos`` is (slots,)).  An
+attention-free tree carries one top-level cursor ``"pos": (slots,)``.
+The serving functions update the pool and slot-state tensors IN PLACE
+and return the tree with new cursors.
 
 llava's patch prefix (``batch["patches"]`` (B, P, D) through
 ``vision_proj``, ahead of the tokens, so text positions start at P) enters
@@ -60,7 +67,7 @@ from repro_torch.models.layers import (ParamDef, dense, embed_apply,
 
 PyTree = Any
 
-_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+_POOL_KEYS = ("k", "v", "k_scale", "v_scale", "c_kv", "k_pe")
 #: per-slot recurrent state of MAMBA2 blocks
 _SLOT_STATE_KEYS = ("conv", "ssm")
 
@@ -70,18 +77,18 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mla is not None or cfg.first_layer_dense_ff \
-            or cfg.frontend == "frames":
+    if cfg.frontend == "frames":
         raise NotImplementedError(
-            f"{cfg.name}: MLA, a dense first layer and the frames "
-            f"frontend are not ported yet (see ROADMAP.md)")
+            f"{cfg.name}: the frames frontend belongs to the training "
+            f"path, which is not ported yet (see ROADMAP.md)")
 
 
 def _norm_def(d: int) -> ParamDef:
     return ParamDef((d,), init="zeros")
 
 
-def _block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
+def _block_defs(cfg: ModelConfig, kind: BlockKind, *, dense_ff: int = 0
+                ) -> dict:
     d = cfg.d_model
     if kind is BlockKind.MAMBA2:
         return {"ln1": _norm_def(d), "mamba": S.mamba2_defs(cfg)}
@@ -90,11 +97,14 @@ def _block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
         # (unused) norm, as the reference's does
         return {"ln1": _norm_def(d)}
     defs = {"ln1": _norm_def(d), "ln2": _norm_def(d),
-            "attn": A.attn_defs(cfg)}
+            "attn": A.mla_defs(cfg) if cfg.mla is not None
+            else A.attn_defs(cfg)}
     if cfg.post_norms:
         defs["post_ln1"] = _norm_def(d)
         defs["post_ln2"] = _norm_def(d)
-    if cfg.moe is not None:
+    if dense_ff:
+        defs["mlp"] = mlp_defs(d, dense_ff)
+    elif cfg.moe is not None:
         defs["moe"] = M.moe_defs(cfg)
     else:
         defs["mlp"] = mlp_defs(d, cfg.d_ff)
@@ -116,6 +126,9 @@ def param_defs(cfg: ModelConfig) -> dict:
                                 cfg.n_groups_scan)
     if cfg.tail:
         defs["tail_blocks"] = tuple(_block_defs(cfg, k) for k in cfg.tail)
+    if cfg.first_layer_dense_ff:
+        defs["first_block"] = _block_defs(cfg, BlockKind.ATTN,
+                                          dense_ff=cfg.first_layer_dense_ff)
     if BlockKind.SHARED_ATTN in cfg.pattern + cfg.tail:
         defs["shared_attn"] = stack_defs(
             {"ln1": _norm_def(d), "attn": A.attn_defs(cfg)},
@@ -151,7 +164,9 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
     """One block over its cache (per-slot state, dense stripes or pool
     leaves, and the cursor of this layer), or over none (the forward).
     Recurrent state is written in place; returns (x, the attention cursor
-    after the call, or None for a MAMBA2 block or without a cache)."""
+    after the call, or None for a MAMBA2 block or without a cache).  The
+    FFN is the block's ``moe`` where it has one, else its ``mlp`` (the
+    first block's dense MLP among them)."""
     eps = cfg.norm_eps
     if kind is BlockKind.MAMBA2:
         # ``seq_lens`` masks the recurrence of pad positions and of rows
@@ -173,8 +188,11 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
                                   rms_norm(x, shared["ln1"], eps), cfg,
                                   kind=BlockKind.ATTN, **attn_kw)
         return x + out, None if nc is None else nc["pos"]
-    out, nc = A.gqa_attention(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
-                              kind=kind, **attn_kw)
+    h = rms_norm(x, p["ln1"], eps)
+    if cfg.mla is not None:
+        out, nc = A.mla_attention(p["attn"], h, cfg, **attn_kw)
+    else:
+        out, nc = A.gqa_attention(p["attn"], h, cfg, kind=kind, **attn_kw)
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln1"], eps)
     x = x + out
@@ -200,12 +218,20 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 pos_advance: torch.Tensor | None = None,
                 seq_lens: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, PyTree | None]:
-    """The pattern groups in order (each group's kinds in pattern order),
-    then the tail blocks; returns (x, the cache tree with new cursors, or
-    None without one).  ``block_table`` None: dense stripes."""
+    """The first block, the pattern groups in order (each group's kinds
+    in pattern order), then the tail blocks; returns (x, the cache tree
+    with new cursors, or None without one).  ``block_table`` None: dense
+    stripes."""
     backend = gemm_backend(cfg)
     kw = dict(pos_offset=pos_offset, block_table=block_table,
               pos_advance=pos_advance, seq_lens=seq_lens, backend=backend)
+    out: dict = {}
+    if "first_block" in params:
+        fcache = None if caches is None else caches["first"]
+        x, pos = _apply_block(cfg, BlockKind.ATTN, params["first_block"], x,
+                              fcache, None, **kw)
+        if fcache is not None:
+            out["first"] = {**fcache, "pos": pos}
     n_pat = len(cfg.pattern)
     new_pos: list[list[torch.Tensor]] = [[] for _ in range(n_pat)]
     for gi in range(cfg.n_groups_scan):
@@ -228,9 +254,9 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
         tail.append(tcache if pos is None else {**tcache, "pos": pos})
     if caches is None:
         return x, None
-    out: dict = {"groups": tuple(
+    out["groups"] = tuple(
         {**gcache, "pos": torch.stack(new_pos[i])} if new_pos[i] else gcache
-        for i, gcache in enumerate(caches["groups"]))}
+        for i, gcache in enumerate(caches["groups"]))
     if cfg.tail:
         out["tail"] = tuple(tail)
     return x, out
@@ -405,7 +431,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         if kind is BlockKind.MAMBA2:
             return S.make_ssm_state(cfg, batch, dtype, dev)
         return A.make_kv_cache(cfg, batch, max_len, dtype, dev)
-    caches: dict = {"groups": _stack_groups(cfg, block)}
+    caches: dict = {}
+    if cfg.first_layer_dense_ff:
+        caches["first"] = block(BlockKind.ATTN)
+    caches["groups"] = _stack_groups(cfg, block)
     if cfg.tail:
         caches["tail"] = tuple(block(k) for k in cfg.tail)
     return caches
@@ -449,7 +478,10 @@ def init_paged_caches(cfg: ModelConfig, slots: int, num_blocks: int,
         return A.make_paged_kv_cache(cfg, num_blocks, block_size, dtype,
                                      dev)
 
-    caches: dict = {"groups": _stack_groups(cfg, block)}
+    caches: dict = {}
+    if cfg.first_layer_dense_ff:
+        caches["first"] = block(BlockKind.ATTN)
+    caches["groups"] = _stack_groups(cfg, block)
     if cfg.tail:
         caches["tail"] = tuple(block(k) for k in cfg.tail)
     if cfg.attention_free:
@@ -466,7 +498,7 @@ def _is_pos(path: tuple) -> bool:
 
 def _axis(path: tuple) -> int:
     """The slot (state) or block (pool) axis of a leaf: 1 under the
-    group-stacked ``"groups"``, 0 in the tail."""
+    group-stacked ``"groups"``, 0 in the tail and in ``"first"``."""
     return 1 if path and path[0] == "groups" else 0
 
 

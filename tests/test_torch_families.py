@@ -120,21 +120,26 @@ def test_registry_and_supported_families():
         assert TC.get(cfg.name) == cfg               # the dashed alias
         TN.param_defs(cfg)                           # supported
     base = TC.get("qwen2_0_5b")
-    for bad in (dict(mla=MLAConfig()), dict(first_layer_dense_ff=256),
-                dict(frontend="frames")):
-        with pytest.raises(NotImplementedError):
-            TN.param_defs(dataclasses.replace(base, **bad))
+    # only the frames frontend (the training path's hubert) is refused
+    with pytest.raises(NotImplementedError, match="frames"):
+        TN.param_defs(dataclasses.replace(base, frontend="frames"))
+    # MLA and a dense first layer are served (tests/test_torch_mla.py)
+    mla = TN.param_defs(dataclasses.replace(base, mla=MLAConfig(),
+                                            first_layer_dense_ff=256))
+    assert "wkv_a" in mla["blocks"][0]["attn"]
+    assert mla["first_block"]["mlp"]["wi_up"].shape == (base.d_model, 256)
     # MoE blocks are served (tests/test_torch_moe.py)
     moe = TN.param_defs(dataclasses.replace(base, moe=MoEConfig(8, 2, 128)))
     assert "moe" in moe["blocks"][0] and "mlp" not in moe["blocks"][0]
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("llama4_scout_17b_a16e",))
+@pytest.mark.parametrize("arch", ARCHS + ("llama4_scout_17b_a16e",
+                                          "deepseek_v2_236b"))
 def test_serve_cli_serves_each_arch(arch, capsys):
     """``launch/serve.py --arch <dashed id> --scaled-down --device cpu``
     serves every request; so does ``--quant`` on zamba2 (SSM state, int8
-    KV at its shared attention) and on llama4 (MoE), under both
-    backends."""
+    KV at its shared attention), on llama4 (MoE) and on deepseek-v2 (its
+    latent pool stays in the compute dtype), under both backends."""
     from repro_torch.launch import serve
     argv = ["--arch", TC.get(arch).name, "--scaled-down", "--device",
             "cpu", "--requests", "3", "--prompt-len", "24", "--max-new",
@@ -142,14 +147,16 @@ def test_serve_cli_serves_each_arch(arch, capsys):
     report = serve.main(argv)
     assert report["ok"] == report["requests"] == 3
     assert f"[serve:{TC.get(arch).name} xla on cpu]" in capsys.readouterr().out
-    if arch in ("zamba2_7b", "llama4_scout_17b_a16e"):
+    if arch in ("zamba2_7b", "llama4_scout_17b_a16e", "deepseek_v2_236b"):
+        mla = arch == "deepseek_v2_236b"
         for backend in ("xla", "scheduled"):
             report = serve.main(argv + ["--quant", "--gemm-backend",
                                         backend])
             assert report["ok"] == report["requests"] == 3
-            assert report["kv_quantized"] == 1
+            assert report["kv_quantized"] == int(not mla)
             out = capsys.readouterr().out
-            assert "int8 KV blocks" in out
+            assert ("int8 KV blocks" in out) is not mla
+            assert ("+ fp KV" in out) is mla
             assert f"[serve:{TC.get(arch).name}+int8 {backend} on cpu]" in out
 
 

@@ -834,6 +834,14 @@ FAMILY_SHAPES = {
                               (8, 16, 5120, "kn"), (2048, 16, 5120, "kn"),
                               (8, 8192, 5120, "kn"), (8, 5120, 8192, "kn"),
                               (8, 202048, 5120, "nk")],
+    # deepseek-v2: wq_a, wq_b, wkv_a and wo at decode rows, a wk_b / wv_b
+    # decompression over 2048 gathered rows, the router (N = 160), the
+    # shared experts' gate, the first block's MLP gate and the head
+    "deepseek_v2_236b": [(8, 1536, 5120, "kn"), (8, 24576, 1536, "kn"),
+                         (8, 576, 5120, "kn"), (8, 5120, 16384, "kn"),
+                         (2048, 16384, 512, "kn"), (8, 160, 5120, "kn"),
+                         (8, 3072, 5120, "kn"), (8, 12288, 5120, "kn"),
+                         (8, 102400, 5120, "nk")],
 }
 
 
@@ -1196,6 +1204,16 @@ QUANT_SHAPES = {
                               (8, 8192, 5120, "hopper"),
                               (8, 5120, 8192, "hopper"),
                               (8, 202048, 5120, "hopper")],
+    # deepseek-v2 at the shapes of FAMILY_SHAPES (wq_a and wkv_a stay
+    # float on the path) and the head's (D, V) payload
+    "deepseek_v2_236b": [(8, 1536, 5120, "hopper"),
+                         (8, 24576, 1536, "hopper"),
+                         (8, 576, 5120, "hopper"),
+                         (8, 5120, 16384, "hopper"),
+                         (2048, 16384, 512, "hopper"),
+                         (8, 3072, 5120, "hopper"),
+                         (8, 12288, 5120, "hopper"),
+                         (8, 102400, 5120, "hopper")],
 }
 
 
@@ -1269,3 +1287,70 @@ def test_moe_apply_on_card_matches_cpu(cuda, backend):
     assert int(drops[0][2]) == int(drops_cpu[0][2]) > 0
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+
+def test_moe_apply_top6_on_card_matches_cpu(cuda):
+    """deepseek-v2's top-6 routing (16 experts, fp32) on the card against
+    the same call on the CPU within 1e-4, and bit-equal on a repeat: each
+    token sums its six outputs in a fixed order (``index_add_``'s
+    atomics did not fix it)."""
+    from repro_torch.models import moe as TMOE
+    cfg = TC.get("deepseek_v2_236b").scaled_down()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=16, top_k=6))
+    gen = torch.Generator().manual_seed(4)
+    D, F = cfg.d_model, cfg.moe.d_ff_expert
+    p = {"router": torch.randn(D, 16, generator=gen) * 0.1,
+         "wi_gate": torch.randn(16, D, F, generator=gen) * 0.05,
+         "wi_up": torch.randn(16, D, F, generator=gen) * 0.05,
+         "wo": torch.randn(16, F, D, generator=gen) * 0.05}
+    x = torch.randn(4, 16, D, generator=gen)
+    want, _aux = TMOE.moe_apply(p, x, cfg)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    got, _aux = TMOE.moe_apply(pc, x.to(cuda), cfg)
+    again, _aux = TMOE.moe_apply(pc, x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("backend", ["xla", "scheduled"])
+def test_mla_attention_on_card_matches_cpu(cuda, backend):
+    """Scaled-down deepseek-v2's MLA layer (fp32) on the card against the
+    CPU: a paged chunk (decompressed k / v over the gathered table,
+    through K2 under scheduled) and an absorbed decode step, within 1e-4,
+    with K1 never launched."""
+    from repro_torch.kernels.ops import GemmBackend
+    from repro_torch.models import attention as TA
+    cfg = TC.get("deepseek_v2_236b").scaled_down()
+    params = TN.init(cfg, 0, "cpu")
+    p = {k: v[0] for k, v in params["blocks"][0]["attn"].items()}
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 12, cfg.d_model, generator=gen)
+    xd = torch.randn(2, 1, cfg.d_model, generator=gen)
+    table = torch.tensor([[3, 1, 5], [2, 4, 0]], dtype=torch.int32)
+    lens = torch.tensor([12, 9], dtype=torch.int32)
+
+    def run(dev, be):
+        pool = dict(TA.make_paged_kv_cache(cfg, 6, 8, torch.float32,
+                                           torch.device(dev)),
+                    pos=torch.zeros(2, dtype=torch.int32, device=dev))
+        pp = {k: v.to(dev) for k, v in p.items()}
+        bt = table.to(dev)
+        y1, pool = TA.mla_attention(pp, x.to(dev), cfg,
+                                    pos_offset=pool["pos"], cache=pool,
+                                    block_table=bt,
+                                    pos_advance=lens.to(dev), backend=be)
+        y2, pool = TA.mla_attention(pp, xd.to(dev), cfg,
+                                    pos_offset=lens.to(dev), cache=pool,
+                                    block_table=bt,
+                                    pos_advance=torch.ones(
+                                        2, dtype=torch.int32, device=dev),
+                                    backend=be)
+        return y1.cpu(), y2.cpu()
+    want = run("cpu", None)
+    TPA.launches.reset()
+    got = run("cuda", GemmBackend() if backend == "scheduled" else None)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert TPA.launches.count == 0

@@ -8,7 +8,9 @@ expert, capacity factor 4) in fp32, its init weights times ``SCALE``.
   * ``moe_apply`` gives the reference's output within 1e-4 (its GEMM
     bound) and its aux loss within 1e-6, at capacity factor 4 (nothing
     dropped) and at 1.0 on a batch that drops slots (the stable sort
-    decides which), for top-1 and top-2, under both GEMM backends; the
+    decides which), for top-1 and top-2, and at top-6 of 16 experts
+    (deepseek-v2's top-k; a token's six adds into the combine need not
+    come in the reference's order), under both GEMM backends; the
     port's count of dropped slots equals the one the reference's routing
     implies.  One expert with top-1 is the plain expert MLP (the
     reference's ``test_moe_single_expert_equals_dense``).
@@ -122,14 +124,33 @@ def model():
     return tuple(_MODEL)
 
 
+#: experts of the top-6 case (deepseek-v2's top-k; its scaled-down
+#: config caps top-k at 2)
+TOP6_EXPERTS = 16
+
+
 def _moe_case(cf: float, top_k: int, tokens: int, seed: int = 0):
-    """(jax config, port config, layer-0 MoE params as numpy, x)."""
+    """(jax config, port config, layer-0 MoE params as numpy, x).  Above
+    top-2 the routed experts are ``TOP6_EXPERTS`` drawn from a seeded
+    numpy generator at the layer's scale (llama4 has 8), the shared
+    expert llama4's."""
     jcfg, params, tcfg, _tp = model()
-    moe = dataclasses.replace(jcfg.moe, capacity_factor=cf, top_k=top_k)
+    n = jcfg.moe.n_experts if top_k <= 2 else TOP6_EXPERTS
+    moe = dataclasses.replace(jcfg.moe, capacity_factor=cf, top_k=top_k,
+                              n_experts=n)
     jcfg = dataclasses.replace(jcfg, moe=moe)
     tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
-        tcfg.moe, capacity_factor=cf, top_k=top_k))
+        tcfg.moe, capacity_factor=cf, top_k=top_k, n_experts=n))
     p = jax.tree.map(lambda a: a[0], params["blocks"][0]["moe"])
+    if n != p["router"].shape[-1]:
+        rng = np.random.default_rng(seed + 1)
+        D, F = jcfg.d_model, jcfg.moe.d_ff_expert
+
+        def draw(*shape, scale=0.02 * SCALE):
+            return (rng.standard_normal(shape) * scale).astype(np.float32)
+        p = {**p, "router": draw(D, n, scale=0.006 * SCALE * 4),
+             "wi_gate": draw(n, D, F), "wi_up": draw(n, D, F),
+             "wo": draw(n, F, D)}
     x = np.random.default_rng(seed).standard_normal(
         (2, tokens // 2, jcfg.d_model)).astype(np.float32)
     return jcfg, tcfg, p, x
@@ -148,7 +169,8 @@ def _reference_drops(jcfg, p, x) -> int:
 
 @pytest.mark.parametrize("backend", ["xla", "scheduled"])
 @pytest.mark.parametrize("cf,top_k,tokens", [(4.0, 1, 16), (1.0, 1, 64),
-                                             (4.0, 2, 16), (1.0, 2, 64)])
+                                             (4.0, 2, 16), (1.0, 2, 64),
+                                             (4.0, 6, 32)])
 def test_moe_apply_matches_reference(cf, top_k, tokens, backend):
     jcfg, tcfg, p, x = _moe_case(cf, top_k, tokens)
     want, want_aux = jax.jit(JM.moe_apply, static_argnums=2)(
