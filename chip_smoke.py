@@ -375,6 +375,40 @@ after profile_scaled_down_fp32:
   expert, K3 at the SSM shapes (8 and 2048 rows) and the routed experts'
   ``torch.bmm`` as context.  The time split prints this slice.
 
+Training adds, after mla_scaled_down_fp32:
+
+  k5_bwd_vs_plain: K5-bwd (``ssd.ssd_intra_chunked_bwd``, the SSD
+  intra-chunk backward: dx, d dt, d cums, dB, dC) against its plain
+  version at mamba2's and zamba2's training calls (B 4, nc 4, Q 256; H
+  80 / 112, N 128 / 64), G = 2 with a ragged head block, Q = 32, a ragged
+  Q, strided operands with a permuted dy, an unaligned x and dy, and
+  cums falling by 300: each output within 2e-4 of its max, finite, a
+  repeat bit-equal; then the autograd Function on the card against the
+  CPU (one K5 and one K5-bwd launch);
+
+  train_scaled_down_fp32: the same CPU-made weights and batch on the
+  card and on the CPU for scaled-down qwen2, mamba2, zamba2, hubert and
+  deepseek-v2 (fp32, TF32 off): the loss within 1e-5 relative, every
+  gradient leaf within 1e-4 of its max; K5 and K5-bwd once a MAMBA2
+  layer; the restart drill (12 steps, a checkpoint every 4, a failure
+  at step 6) at the clean run's final loss within 1e-5 abs;
+
+  train_path: ``launch.train.train`` at full width (bf16, remat, xla,
+  1024-token rows, ``N.init`` from --seed): qwen2-0.5b 8 steps at batch
+  8 with a checkpoint every 4 and a failure at step 6 against a clean
+  run (the resume at step 4, its batches byte-equal, the final loss
+  equal), mamba2-2.7b 4 steps at batch 4, hubert-xlarge 4 steps at
+  batch 8: finite losses, grad norms > 0, K5 2 x 64 and K5-bwd 64 a
+  mamba2 step (remat: the forward and the recompute), K1, K2, K3 never;
+  step wall, one profiled step's device time and busy share, tokens/s,
+  6 N tokens / time against the bf16 dense peak, peak memory and the
+  checkpoint's bytes and write time.
+
+  Phase 7 times K5-bwd at mamba2's training call beside its bound, its
+  plain version and autograd through the plain forward (context; no
+  PyTorch call computes this backward).  The time split prints this
+  slice.
+
 The main paths (phase 5, mamba2_path, spill_path) report K2's launches
 by route (``mpgemm.launches_by_route``) and fail when a bf16 GEMM took
 the CUDA-core route; the int8 main path does the same for K3
@@ -397,7 +431,9 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -423,6 +459,10 @@ K5_REPLACES = "src/repro/kernels/ssd.py:52"
 # K6 lives in K2's source; it replaces _partial_kernel (:148) and
 # _os_fold_spill_kernel (:157)
 K6_REPLACES = "src/repro/kernels/mpgemm.py:148"
+# K5-bwd replaces no Pallas kernel (the reference differentiates its plain
+# jnp SSD): "replaces" names the reference function it differentiates
+K5B_SOURCE = "src/repro_torch/kernels/csrc/ssd_intra_bwd.cu"
+K5B_REPLACES = "src/repro/kernels/ssd.py:83"
 
 
 class Smoke:
@@ -433,7 +473,7 @@ class Smoke:
         self.kerr = {"paged_decode": 0.0, "mpgemm": 0.0,
                      "paged_decode_int8": 0.0, "quant_matmul": 0.0,
                      "limb_gemm": 0.0, "ssd_intra": 0.0,
-                     "mpgemm_spill": 0.0}
+                     "mpgemm_spill": 0.0, "ssd_intra_bwd": 0.0}
 
     def phase(self, name: str, fn) -> None:
         print(f"== {name}", flush=True)
@@ -528,7 +568,7 @@ def main(argv=None) -> int:
     #: K3 and K5 checks, timing rows), by slice and phase: the families
     #: since qwen1.5 and the dense path
     added_s: dict = {"families": {}, "dense": {}, "resilience": {},
-                     "profile": {}, "moe": {}, "mla": {}}
+                     "profile": {}, "moe": {}, "mla": {}, "train": {}}
 
     def added(phase, t0, slice_="families"):
         got = added_s[slice_]
@@ -1519,6 +1559,7 @@ def main(argv=None) -> int:
         MP.reset_launches()
         QM.reset_launches()
         SSD.launches.reset()
+        SSD.bwd_launches.reset()
 
     def launch_counts():
         return {"paged_decode": PA.launches.count,
@@ -1529,7 +1570,8 @@ def main(argv=None) -> int:
                 "paged_decode_int8": PA.launches_int8.count,
                 "quant_matmul": QM.launches.count,
                 "quant_matmul_by_route": dict(QM.launches_by_route),
-                "ssd_intra": SSD.launches.count}
+                "ssd_intra": SSD.launches.count,
+                "ssd_intra_bwd": SSD.bwd_launches.count}
 
     def counted_run(eng, reqs, settle=0.0):
         """(results by rid, wall, launch counts) of one run of ``eng``
@@ -4231,6 +4273,8 @@ def main(argv=None) -> int:
             del args_
         timing["ssd_intra_dense"] = rows
         added("timing", t0, "dense")
+        # K5-bwd at mamba2's training call (train_path)
+        k5_bwd_timing(flush)
 
         # K6 at the down projection at chunk rows, bf16: WS at the path's
         # tile (bk = 64, 76 planes) and at bk = 128 (38 planes; bk = 32
@@ -5211,6 +5255,458 @@ def main(argv=None) -> int:
             raise AssertionError("the reference package or JAX was imported")
         rep["paper_tables"] = {"derived": got, "cli": lines}
 
+    # -- 16. training: K5-bwd, scaled-down parity, full width ---------------
+    #: launch counts of the mamba2-2.7b run of train_path (K5-bwd's row)
+    train_launches: dict = {}
+
+    def k5_bwd_inputs(B, nc, Q, H, G, P, N_, seed, strided=False,
+                      fall=None, unaligned=False):
+        """K5's operands (``ssd_tiles.path_inputs``) and a dy ~ N(0, 1);
+        ``strided``: x, B and C views of one wider tensor and dy a
+        permuted view; ``unaligned``: x and dy start 4 bytes past a
+        16-byte boundary."""
+        args_ = SSD_T.path_inputs(Q, seed, dev, B, nc, H, G, P, N_,
+                                  strided=strided, fall=fall)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        if strided:
+            dy = torch.randn(B, nc, Q, P, H, generator=gen,
+                             device=dev).transpose(3, 4)
+        else:
+            dy = torch.randn(B, nc, Q, H, P, generator=gen, device=dev)
+        x = args_[0]
+        if unaligned:
+            def shift(t):
+                buf = torch.empty(t.numel() + 1, device=dev)
+                return buf[1:].view(t.shape).copy_(t)
+            x, dy = shift(x), shift(dy)
+        return (x,) + tuple(args_[1:]) + (dy,)
+
+    #: (label, (B, nc, Q, H, G, P, N), options): mamba2's and zamba2's
+    #: training calls (seq 1024: four chunks of 256 a row, batch 4),
+    #: G > 1 with a ragged head block, Q = 32, a ragged Q, strided
+    #: operands, an unaligned x and dy, and cums falling by 300
+    k5_bwd_cases = (
+        ("mamba2 train B=4 nc=4 Q=256 H=80 N=128", (4, 4, 256, 80, 1, 64,
+                                                   128), {}),
+        ("zamba2 train H=112 N=64", (4, 4, 256, 112, 1, 64, 64), {}),
+        ("G=2, ragged head block (7 + 6)", (8, 4, 256, 26, 2, 64, 128),
+         {}),
+        ("Q=32", (8, 1, 32, 80, 1, 64, 128), {}),
+        ("ragged Q=100, P=24, N=40", (2, 1, 100, 8, 2, 24, 40), {}),
+        ("strided views, permuted dy", (2, 2, 256, 80, 1, 64, 128),
+         {"strided": True}),
+        ("unaligned x and dy, P=18, N=10", (2, 1, 100, 8, 2, 18, 10),
+         {"unaligned": True}),
+        ("cums fall by 300", (2, 1, 256, 80, 1, 64, 128), {"fall": 300.0}))
+    K5_BWD_NAMES = ("dx", "ddt", "dcums", "db", "dc")
+
+    def p_k5_bwd():
+        """K5-bwd against ``ssd_intra_chunked_bwd_ref``: every output within
+        2e-4 of that output's max |.|, finite, and a repeat bit-equal;
+        then the autograd Function on the card against the CPU's."""
+        rows = []
+        bad = []
+        for n, (label, shape, kw) in enumerate(k5_bwd_cases):
+            args_ = k5_bwd_inputs(*shape, seed=300 + n, **kw)
+            got = SSD.ssd_intra_chunked_bwd(*args_)
+            again = SSD.ssd_intra_chunked_bwd(*args_)
+            want = SSD.ssd_intra_chunked_bwd_ref(*args_)
+            torch.cuda.synchronize()
+            errs, rel = {}, {}
+            for name, g, w in zip(K5_BWD_NAMES, got, want):
+                e = (g - w).abs().max().item()
+                errs[name] = e
+                rel[name] = e / max(w.abs().max().item(), 1e-30)
+                sm.kerr["ssd_intra_bwd"] = max(sm.kerr["ssd_intra_bwd"], e)
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            plan = SSD.ssd_bwd_plan(*shape[:6])
+            ok = finite and same and max(rel.values()) <= 2e-4
+            rows.append({"case": label, "shape": list(shape), "kw": kw,
+                         "head_block": plan.head_block,
+                         "grid_main": plan.grid_main, "max_abs_err": errs,
+                         "max_rel_err": rel, "finite": finite,
+                         "bit_equal_repeat": same, "ok": ok})
+            print(f"K5-bwd {label} {shape}: head block {plan.head_block}, "
+                  f"grid {plan.grid_main}; err / max "
+                  + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+                  + f"; finite {finite}, repeat bit-equal {same} "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+            del got, again, want, args_
+        # the Function: forward K5 and backward K5-bwd on the card against
+        # the plain forward and backward on the CPU, at a small shape
+        args_ = k5_bwd_inputs(2, 2, 64, 8, 2, 16, 16, seed=399)
+        ins = [t.detach().clone().requires_grad_() for t in args_[:5]]
+        cpu = [t.detach().cpu().requires_grad_() for t in args_[:5]]
+        reset_launches()
+        y = SSD.ssd_intra_chunked(*ins)
+        g_dev = torch.autograd.grad(y, ins, args_[5])
+        fn_counts = (SSD.launches.count, SSD.bwd_launches.count)
+        y_cpu = SSD.ssd_intra_chunked(*cpu)
+        g_cpu = torch.autograd.grad(y_cpu, cpu, args_[5].cpu())
+        fn_rel = max(((a.cpu() - b).abs().max()
+                      / b.abs().max().clamp_min(1e-30)).item()
+                     for a, b in zip((y,) + g_dev, (y_cpu,) + g_cpu))
+        print(f"SsdIntraChunked on the card vs the CPU: max err / max "
+              f"{fn_rel:.1e}; K5 launches {fn_counts[0]}, K5-bwd "
+              f"{fn_counts[1]}")
+        if fn_counts != (1, 1) or fn_rel > 2e-4:
+            bad.append("autograd Function")
+        rep["k5_bwd"] = {"cases": rows, "function_rel_err": fn_rel,
+                         "function_launches": fn_counts}
+        if bad:
+            raise AssertionError(f"K5-bwd mismatches: {bad}")
+
+    def k5_bwd_bound_ms(n_seq, Q, H, G, P, N_):
+        """K5-bwd's bound: x, dy, dt, cums, B, C read once and dx, d dt,
+        d cums, dB, dC written once; the products of the causal pairs
+        (dM and dX once a head, the scores, dC and dB once a group) in
+        3xTF32 (three TF32 products each, 495 TFLOP/s), as K5's."""
+        nbytes = 4 * n_seq * Q * (3 * H * P + 4 * H + 4 * G * N_)
+        pairs = Q * (Q + 1) // 2
+        flops = 3 * n_seq * pairs * 2 * (2 * H * P + 3 * G * N_)
+        return bound_ms(nbytes, flops, "tfloat32")
+
+    def k5_bwd_timing(flush):
+        """K5-bwd at mamba2's training call beside its plain version and,
+        as context, torch.autograd's backward through the plain
+        forward."""
+        t0 = time.perf_counter()
+        shape = k5_bwd_cases[0][1]
+        args_ = k5_bwd_inputs(*shape, seed=500)
+        kern = time_ms(lambda: SSD.ssd_intra_chunked_bwd(*args_), 20, flush)
+        plain = time_ms(lambda: SSD.ssd_intra_chunked_bwd_ref(*args_), 5,
+                        flush)
+        ins = [t.detach().clone().requires_grad_() for t in args_[:5]]
+        y = SSD.ssd_intra_chunked_ref(*ins)
+        ctx = time_ms(lambda: torch.autograd.grad(y, ins, args_[5],
+                                                  retain_graph=True), 5,
+                      flush)
+        del y, ins
+        B_, nc, Q, H, G, P, N_ = shape
+        b_ms, b_by = k5_bwd_bound_ms(B_ * nc, Q, H, G, P, N_)
+        plan = SSD.ssd_bwd_plan(B_, nc, Q, H, G, P)
+        timing["ssd_intra_bwd"] = {
+            "shape": "mamba2 training call (B 4, nc 4, Q 256, H 80, G 1, "
+                     "P 64, N 128) fp32",
+            "ms": kern, "plain_ms": plain, "library_ms": None,
+            "library": "none (no PyTorch call computes this backward)",
+            "context_ms": ctx,
+            "context": "torch.autograd.grad through ssd_intra_chunked_ref "
+                       "(the backward only), fp32, TF32 off",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "head_block": plan.head_block, "grid_main": plan.grid_main}
+        print(f"K5-bwd {shape}: kernel {kern*1e3:.1f} us, plain "
+              f"{plain*1e3:.1f} us, autograd through the plain forward "
+              f"(context) {ctx*1e3:.1f} us, bound {b_ms*1e3:.1f} us "
+              f"({b_by})")
+        added("timing", t0, "train")
+
+    TRAIN_SMALL = ("qwen2_0_5b", "mamba2_2_7b", "zamba2_7b", "hubert_xlarge",
+                   "deepseek_v2_236b")
+
+    def p_train_small():
+        """Scaled-down fp32 (TF32 off): the same CPU-made weights and batch
+        on the card and on the CPU, for each of ``TRAIN_SMALL``: the loss
+        within 1e-5 relative, every gradient leaf within 1e-4 of its max
+        |g|; K5 and K5-bwd once a MAMBA2 layer on the card.  Then the
+        restart drill of tests/test_system.py on the card (12 steps, a
+        checkpoint every 4, a failure at step 6): the clean run's final
+        loss within 1e-5 abs."""
+        from repro_torch.data.pipeline import DataConfig, make_batch
+        from repro_torch.launch import train as TRAIN
+        from repro_torch.optim.adamw import leaves
+        from repro_torch.runtime.faults import FailureInjector, RestartPolicy
+        out, bad = {}, []
+        for arch in TRAIN_SMALL:
+            cfg = CONFIGS.get(arch).scaled_down()
+            params = N.init(cfg, args.seed, device="cpu")
+            batch = make_batch(cfg, DataConfig(vocab=cfg.vocab, seq_len=64,
+                                               global_batch=2,
+                                               seed=args.seed), 0)
+            res = {}
+            for where in ("cpu", dev):
+                p = tree_map(lambda _p, a: a.to(where, copy=True), params)
+                ps = leaves(p)
+                for t in ps:
+                    t.requires_grad_(True)
+                reset_launches()
+                loss, _m = N.loss_fn(p, cfg, {k: torch.from_numpy(v).to(where)
+                                             for k, v in batch.items()})
+                gs = torch.autograd.grad(loss, ps, allow_unused=True)
+                res[where] = (loss.item(), [
+                    (torch.zeros_like(t) if g is None else g).cpu()
+                    for t, g in zip(ps, gs)],
+                    (SSD.launches.count, SSD.bwd_launches.count))
+            (l0, g0, _), (l1, g1, k5) = res["cpu"], res[dev]
+            loss_rel = abs(l1 - l0) / abs(l0)
+            grad_rel = max(((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item()
+                           for a, b in zip(g1, g0))
+            n_ssm = sum(k is BlockKind.MAMBA2 for k in
+                        cfg.pattern * cfg.n_groups_scan + cfg.tail)
+            ok = loss_rel <= 1e-5 and grad_rel <= 1e-4 \
+                and k5 == (n_ssm, n_ssm)
+            out[arch] = {"loss_cpu": l0, "loss_card": l1,
+                         "loss_rel": loss_rel, "grad_rel_max": grad_rel,
+                         "k5_k5bwd_launches": k5, "mamba2_layers": n_ssm,
+                         "ok": ok}
+            print(f"train scaled-down fp32 {arch}: loss card {l1:.7f} cpu "
+                  f"{l0:.7f} (rel {loss_rel:.1e}), worst gradient leaf "
+                  f"{grad_rel:.1e} of its max; K5, K5-bwd launches {k5} "
+                  f"(expected {n_ssm} each) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(arch)
+        cfg = CONFIGS.get("qwen2_0_5b").scaled_down()
+        base = dict(steps=12, global_batch=2, seq_len=32, ckpt_every=4,
+                    log_every=100, seed=args.seed)
+        logs: list[str] = []
+        with tempfile.TemporaryDirectory() as d1, \
+                tempfile.TemporaryDirectory() as d2:
+            clean = TRAIN.train(cfg, TRAIN.TrainConfig(ckpt_dir=d1, **base),
+                                log=logs.append, device=dev)
+            faulty = TRAIN.train(cfg, TRAIN.TrainConfig(ckpt_dir=d2, **base),
+                                 injector=FailureInjector(fail_at_steps=(6,)),
+                                 restart_policy=RestartPolicy(backoff_s=0.0),
+                                 log=logs.append, device=dev)
+        drill = abs(clean["loss"] - faulty["loss"])
+        resumed = [ln for ln in logs if ln.startswith("[restore]")]
+        print(f"restart drill on the card: clean final loss "
+              f"{clean['loss']:.7f}, with a failure at step 6 "
+              f"{faulty['loss']:.7f} (|diff| {drill:.1e}); {resumed}")
+        out["restart_drill"] = {"clean": clean["loss"],
+                                "faulty": faulty["loss"], "abs_diff": drill,
+                                "resumed": resumed}
+        if drill > 1e-5 or resumed != ["[restore] resumed from step 4"]:
+            bad.append("restart drill")
+        rep["train_small"] = out
+        if bad:
+            raise AssertionError(f"train_scaled_down_fp32 failed: {bad}")
+
+    #: (arch, steps, batch, checkpoint and failure): the full-width runs
+    TRAIN_PATH = (("qwen2_0_5b", 8, 8, True), ("mamba2_2_7b", 4, 4, False),
+                  ("hubert_xlarge", 4, 8, False))
+    TRAIN_SEQ = 1024
+
+    def p_train_path():
+        """``launch.train.train`` at full width (``N.init`` from --seed,
+        bf16, remat, the xla backend, 1024-token rows): qwen2-0.5b 8 steps
+        at batch 8 with a checkpoint every 4 and a failure at step 6,
+        against a clean run; mamba2-2.7b 4 steps at batch 4; hubert-xlarge
+        4 steps at batch 8.  Gates: finite losses, grad_norm > 0, the
+        resume at the checkpointed step with its batches byte-equal to the
+        clean run's and the clean run's final loss, K5 twice and K5-bwd
+        once a MAMBA2 layer and step (remat: the forward and the
+        recompute), K1, K2, K3 never.  Reports each model's step wall,
+        device time and busy share of one profiled step, tokens/s, 6 N
+        tokens / time as a share of the bf16 dense peak, peak memory, and
+        the checkpoint's bytes and write time."""
+        import hashlib
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.launch import train as TRAIN
+        from repro_torch.optim.adamw import leaves
+        from repro_torch.runtime.faults import FailureInjector, RestartPolicy
+        real_step, real_batch = TRAIN.make_train_step, TRAIN.make_batch
+        out, bad = {}, []
+
+        class TimedManager(CheckpointManager):
+            """Records each save's host snapshot and its write (the join)."""
+            saves: list = []
+
+            def save(self, step, tree, **kw):
+                self.wait()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().save(step, tree, **kw)
+                self.saves.append({"step": step,
+                                   "snapshot_s": time.perf_counter() - t0,
+                                   "t_end": None, "t0": t0})
+
+            def wait(self):
+                busy = self._thread is not None
+                super().wait()
+                if busy and self.saves and self.saves[-1]["t_end"] is None:
+                    s = self.saves[-1]
+                    s["t_end"] = time.perf_counter()
+                    s["total_s"] = s["t_end"] - s["t0"]
+                    d = self._step_dir(s["step"])
+                    s["bytes"] = sum(f.stat().st_size
+                                     for f in Path(d).rglob("*")
+                                     if f.is_file()) if os.path.isdir(d) \
+                        else None
+
+        def run(arch, steps, batch, ckpt_dir=None, injector=None,
+                profile_step=None):
+            """One ``train`` call; per step: wall, batch digest, metrics;
+            the launch counts of the whole call."""
+            cfg = CONFIGS.get(arch)
+            rec = {"steps": [], "batches": {}, "profile": None}
+
+            def timed_step(*a, **k):
+                inner = real_step(*a, **k)
+
+                def step(params, opt, b):
+                    i = len(rec["steps"])
+                    torch.cuda.synchronize()
+                    prof = None
+                    if i == profile_step:
+                        prof = torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA])
+                        prof.__enter__()
+                    t0 = time.perf_counter()
+                    res = inner(params, opt, b)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    if prof is not None:
+                        prof.__exit__(None, None, None)
+                        dev_ms, n_k = kernel_ms(prof)
+                        rec["profile"] = {
+                            "wall_ms": wall * 1e3, "device_ms": dev_ms,
+                            "kernels": n_k,
+                            "busy_share": dev_ms / (wall * 1e3),
+                            "top": top_ops(prof, 8)}
+                    m = res[2]
+                    rec["steps"].append({"wall_s": wall,
+                                         "loss": m["loss"].item(),
+                                         "grad_norm": m["grad_norm"].item()})
+                    return res
+                return step
+
+            def digest_batch(cfg_, data, step):
+                b = real_batch(cfg_, data, step)
+                h = hashlib.sha256()
+                for k in sorted(b):
+                    h.update(k.encode() + b[k].tobytes())
+                rec["batches"].setdefault(step, []).append(h.hexdigest())
+                return b
+            TRAIN.make_train_step, TRAIN.make_batch = timed_step, digest_batch
+            TRAIN.CheckpointManager = TimedManager
+            TimedManager.saves = []
+            logs: list[str] = []
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                final = TRAIN.train(
+                    cfg, TRAIN.TrainConfig(steps=steps, global_batch=batch,
+                                           seq_len=TRAIN_SEQ,
+                                           ckpt_dir=ckpt_dir, ckpt_every=4,
+                                           log_every=1, seed=args.seed),
+                    injector=injector,
+                    restart_policy=RestartPolicy(backoff_s=0.0),
+                    log=logs.append, device=dev)
+                torch.cuda.synchronize()
+                rec["wall_s"] = time.perf_counter() - t0
+                rec["launches"] = launch_counts()
+                rec["launches"]["ssd_intra_bwd"] = SSD.bwd_launches.count
+                rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                TRAIN.make_train_step, TRAIN.make_batch = real_step, \
+                    real_batch
+                TRAIN.CheckpointManager = CheckpointManager
+            rec["final"] = final
+            rec["log"] = logs
+            rec["saves"] = [{k: v for k, v in s.items() if k != "t0"}
+                            for s in TimedManager.saves]
+            rec["cfg"] = cfg
+            return rec
+
+        for arch, steps, batch, drill in TRAIN_PATH:
+            t_arch = time.perf_counter()
+            if drill:
+                clean = run(arch, steps, batch, profile_step=steps - 1)
+                with tempfile.TemporaryDirectory() as d:
+                    free = shutil.disk_usage(d).free / 2**30
+                    r = run(arch, steps, batch, ckpt_dir=d,
+                            injector=FailureInjector(fail_at_steps=(6,)))
+                r["disk_free_gib"] = free
+                r["clean_final_loss"] = clean["final"]["loss"]
+                resumed = [ln for ln in r["log"]
+                           if ln.startswith("[restore]")]
+                same_batches = all(
+                    r["batches"][s][-1] == clean["batches"][s][0]
+                    for s in range(4, steps))
+                exact = abs(r["final"]["loss"] - clean["final"]["loss"])
+                r.update({"resumed": resumed,
+                          "resumed_batches_equal": same_batches,
+                          "final_loss_abs_diff": exact,
+                          "profile": clean["profile"],
+                          "clean_steps": clean["steps"]})
+                prof = clean["profile"]
+                steps_run = clean["steps"]
+            else:
+                r = run(arch, steps, batch, profile_step=steps - 1)
+                prof = r["profile"]
+                steps_run = r["steps"]
+            cfg = r.pop("cfg")
+            n_params = sum(math.prod(d.shape) for d in leaves(
+                tree_map(lambda _p, d: d, N.param_defs(cfg))))
+            tokens = batch * TRAIN_SEQ
+            walls = [s["wall_s"] for s in steps_run[1:]] or \
+                [s["wall_s"] for s in steps_run]
+            wall = sorted(walls)[len(walls) // 2]
+            n_ssm = sum(k is BlockKind.MAMBA2 for k in
+                        cfg.pattern * cfg.n_groups_scan + cfg.tail)
+            n_steps = len(r["steps"])
+            want = {"ssd_intra": 2 * n_ssm * n_steps,
+                    "ssd_intra_bwd": n_ssm * n_steps, "paged_decode": 0,
+                    "paged_decode_int8": 0, "mpgemm": 0, "quant_matmul": 0}
+            got = {k: r["launches"][k] for k in want}
+            losses = [s["loss"] for s in r["steps"]]
+            gnorms = [s["grad_norm"] for s in r["steps"]]
+            r.update({
+                "params": n_params, "tokens_per_step": tokens,
+                "step_wall_s_median": wall, "tokens_per_s": tokens / wall,
+                "model_flops_share": 6 * n_params * tokens / wall / 989e12,
+                "launches_expected": want, "arch_s":
+                    time.perf_counter() - t_arch})
+            r.pop("batches")
+            out[arch] = r
+            if n_ssm:
+                train_launches.update(r["launches"])
+            ck = r["saves"][0] if r["saves"] else {}
+            print(f"[{card}] train {arch}: {n_steps} steps at batch {batch} "
+                  f"x {TRAIN_SEQ}; losses {[round(v, 4) for v in losses]}, "
+                  f"grad norms {[round(v, 3) for v in gnorms]}; step wall "
+                  f"{wall*1e3:.0f} ms (median), {tokens / wall:.0f} tokens/s, "
+                  f"6 N tokens / time {100 * r['model_flops_share']:.1f}% of "
+                  f"989 TFLOP/s; profiled step device "
+                  f"{prof['device_ms']:.0f} ms of {prof['wall_ms']:.0f} ms "
+                  f"(busy {100 * prof['busy_share']:.0f}%, "
+                  f"{prof['kernels']} kernels); peak {r['peak_gib']:.1f} "
+                  f"GiB; launches {got} (expected {want})"
+                  + (f"; checkpoint {ck.get('bytes', 0) / 2**30:.2f} GiB, "
+                     f"snapshot {ck['snapshot_s']:.2f} s, written in "
+                     f"{ck.get('total_s', float('nan')):.2f} s" if ck else ""))
+            fails = []
+            if not all(math.isfinite(v) for v in losses) \
+                    or min(gnorms) <= 0 or not all(
+                        math.isfinite(v) for v in gnorms):
+                fails.append("loss or grad norm")
+            if got != want:
+                fails.append(f"launches {got}")
+            if drill:
+                print(f"  resume: {r['resumed']}; resumed batches equal to "
+                      f"the clean run's {r['resumed_batches_equal']}; final "
+                      f"loss {r['final']['loss']:.6f} vs clean "
+                      f"{r['clean_final_loss']:.6f} (|diff| "
+                      f"{r['final_loss_abs_diff']:.1e}); disk free "
+                      f"{r['disk_free_gib']:.0f} GiB")
+                if r["resumed"] != ["[restore] resumed from step 4"] \
+                        or not r["resumed_batches_equal"] \
+                        or r["final_loss_abs_diff"] > 1e-5:
+                    fails.append("resume")
+            if fails:
+                bad.append(f"{arch}: {fails}")
+            torch.cuda.empty_cache()
+        rep["train_path"] = out
+        if bad:
+            raise AssertionError(f"train_path failed: {bad}")
+
     phases = (("device", p_device), ("build", p_build),
               ("k1_vs_plain", p_k1), ("k1_int8_vs_plain", p_k1_int8),
               ("k2_vs_plain", p_k2), ("k3_vs_plain", p_k3),
@@ -5241,9 +5737,12 @@ def main(argv=None) -> int:
                   ("paper_tables", p_paper_tables))
     mla_phases = (("mla_path", p_mla),
                   ("mla_scaled_down_fp32", p_mla_small))
+    train_phases = (("k5_bwd_vs_plain", p_k5_bwd),
+                    ("train_scaled_down_fp32", p_train_small),
+                    ("train_path", p_train_path))
     phases += family_phases + dense_phases + resilience_phases + \
-        profile_phases + moe_phases + mla_phases + (("timing", p_timing),
-                                       ("step_profile", p_profile))
+        profile_phases + moe_phases + mla_phases + train_phases + (
+            ("timing", p_timing), ("step_profile", p_profile))
     only = set(args.phases.split(",")) if args.phases else None
     for name, fn in phases:
         if name != "device" and "build" in sm.failures:
@@ -5260,7 +5759,8 @@ def main(argv=None) -> int:
               "resilience": {n for n, _ in resilience_phases},
               "profile": {n for n, _ in profile_phases},
               "moe": {n for n, _ in moe_phases},
-              "mla": {n for n, _ in mla_phases}}
+              "mla": {n for n, _ in mla_phases},
+              "train": {n for n, _ in train_phases}}
     secs = {n: v["seconds"] for n, v in rep["phases"].items()}
     rep["time_split"] = {}
     for sl, names in slices.items():
@@ -5295,7 +5795,8 @@ def main(argv=None) -> int:
             ("limb_gemm", K4_SOURCE, K4_REPLACES, limb_launches),
             ("ssd_intra", K5_SOURCE, K5_REPLACES,
              mamba_launches.get("scheduled", {})),
-            ("mpgemm_spill", K2_SOURCE, K6_REPLACES, spill_launches)):
+            ("mpgemm_spill", K2_SOURCE, K6_REPLACES, spill_launches),
+            ("ssd_intra_bwd", K5B_SOURCE, K5B_REPLACES, train_launches)):
         t = timing.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": counts.get(name, 0),

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("paged_decode", "mpgemm", "quant_matmul", "limb_gemm",
-           "ssd_intra")
+           "ssd_intra", "ssd_intra_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -150,6 +150,8 @@ def main(argv=None) -> dict:
     if args.scaled_down:
         cfg = cfg.scaled_down()
     cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend).validate()
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
     base_cfg = cfg
     quant_policy = None
     if args.quant and args.engine != "wave":

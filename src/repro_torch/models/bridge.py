@@ -5,7 +5,8 @@ tuples of arrays with the scan-stacked leading layer dim on every block
 leaf; the port keeps that tree, so the bridge is a checked leaf-by-leaf
 copy.  Every leaf the port defines must be present with the defined
 shape, and every leaf of the given tree must be consumed: anything left
-unmapped raises.  A tree the reference has already quantized
+unmapped raises.  hubert's frames frontend crosses the same way: its
+``frame_proj`` and untied ``lm_head`` in place of ``embed``.  A tree the reference has already quantized
 (``repro.quant.serving_quant_params``, its QuantTensor leaves holding
 numpy ``q``/``scale``) crosses as the port's QuantTensors, bit for bit.
 """

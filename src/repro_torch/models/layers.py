@@ -162,6 +162,24 @@ def embed_apply(p: dict, tokens: torch.Tensor, dtype: torch.dtype
     return p["table"].to(dtype)[tokens.long()]
 
 
+class _HeadProduct(torch.autograd.Function):
+    """x2 (M, D) @ w (V, D)^T of low-precision operands summed in fp32 ->
+    fp32 (M, V): ``torch.mm``'s ``out_dtype`` form, which has no
+    derivative.  The backward rounds the fp32 cotangent to the operands'
+    dtype and forms dx = g w and dw = g^T x in it."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gb = g.to(x2.dtype)
+        return gb @ w, gb.t() @ x2
+
+
 def head_apply(w, x: torch.Tensor, cap: float | None = None,
                *, backend=None) -> torch.Tensor:
     """Logits: x (B, S, D) @ w (V, D)^T -> fp32 (B, S, V), optional
@@ -187,7 +205,10 @@ def head_apply(w, x: torch.Tensor, cap: float | None = None,
     if backend is not None:
         logits = backend.matmul(x2, w.t(), out_dtype=torch.float32)
     elif x.is_cuda and x.dtype != torch.float32:
-        logits = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            logits = _HeadProduct.apply(x2, w)
+        else:
+            logits = torch.mm(x2, w.t(), out_dtype=torch.float32)
     else:
         logits = x2.float() @ w.float().t()
     return softcap(logits.reshape(*lead, logits.shape[-1]), cap)

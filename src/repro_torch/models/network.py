@@ -1,11 +1,12 @@
-"""Network assembly, the full-sequence forward and the serving functions,
-dense and paged (port of ``repro.models.network`` without training):
+"""Network assembly, the full-sequence forward, the training loss and the
+serving functions, dense and paged (port of ``repro.models.network``):
 decoder stacks of ATTN and ATTN_LOCAL blocks (GQA or, where ``cfg.mla``,
 MLA; sandwich norms, scaled embeddings and softcaps by config; a dense
 MLP or, where ``cfg.moe``, the MoE FFN of ``models.moe``), with
 deepseek-v2's dense first block ahead of the groups where
 ``cfg.first_layer_dense_ff``, attention-free MAMBA2 stacks, and zamba2's
-hybrid of MAMBA2 blocks, shared attention and a MAMBA2 tail.
+hybrid of MAMBA2 blocks, shared attention and a MAMBA2 tail, and
+hubert's encoder (bidirectional attention over projected frames).
 
 Parameters keep the reference's tree: ``{"embed": {"table"}, "final_norm",
 "blocks": (group,)}`` with a leading stacked group dim on every block
@@ -13,9 +14,11 @@ leaf, and where the config asks for them ``lm_head``, ``vision_proj``,
 ``tail_blocks`` (a tuple of unstacked blocks), ``first_block`` (one
 unstacked block with a dense MLP of ``first_layer_dense_ff``) and
 ``shared_attn`` (the ``n_shared_attn_sets`` attention sets, stacked).
-The first block runs first, then the groups, each group's kinds in
-pattern order, as the reference's scan does, then the tail.  Dense cache
-trees (``init_caches``) keep its layout:
+The frames frontend has no ``embed``: ``frame_proj`` ``{"w" (d, d), "b"
+(d,)}`` projects ``batch["frames"]`` (B, S, d) and an untied ``lm_head``
+classifies every frame.  The first block runs first, then the groups,
+each group's kinds in pattern order, as the reference's scan does, then
+the tail.  Dense cache trees (``init_caches``) keep its layout:
 
   ``{"first": {"k": (B, max_len, KV, hd), ...}, "groups": ({"k": (G, B,
   max_len, KV, hd), "v": ..., "pos": (G,)}, ...), "tail": ({"conv": (B,
@@ -46,6 +49,13 @@ llava's patch prefix (``batch["patches"]`` (B, P, D) through
 through ``forward`` and the dense ``prefill`` / ``prefill_ragged``; the
 paged entry points and decode steps take tokens only, as the reference's
 do.
+
+Training (``loss_fn``) runs the forward under autograd: each block's MoE
+load-balancing loss is summed over the first block, the groups and the
+tail, and under ``cfg.remat`` each group of the pattern is wrapped in
+``torch.utils.checkpoint`` (non-reentrant), as the reference checkpoints
+its scan body; the serving functions run without a graph and never
+checkpoint.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
@@ -74,13 +85,6 @@ _SLOT_STATE_KEYS = ("conv", "ssm")
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.frontend == "frames":
-        raise NotImplementedError(
-            f"{cfg.name}: the frames frontend belongs to the training "
-            f"path, which is not ported yet (see ROADMAP.md)")
 
 
 def _norm_def(d: int) -> ParamDef:
@@ -112,11 +116,15 @@ def _block_defs(cfg: ModelConfig, kind: BlockKind, *, dense_ff: int = 0
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
     d = cfg.d_model
-    defs: dict = {"final_norm": _norm_def(d),
-                  "embed": embed_defs(cfg.vocab, d)}
-    if not cfg.tie_embeddings:
+    defs: dict = {"final_norm": _norm_def(d)}
+    if cfg.frontend != "frames":
+        defs["embed"] = embed_defs(cfg.vocab, d)
+        if not cfg.tie_embeddings:
+            defs["lm_head"] = ParamDef((cfg.vocab, d))
+    else:
+        defs["frame_proj"] = {"w": ParamDef((d, d)),
+                              "b": ParamDef((d,), init="zeros")}
         defs["lm_head"] = ParamDef((cfg.vocab, d))
     if cfg.frontend == "patches":
         defs["vision_proj"] = {"w": ParamDef((d, d)),
@@ -150,8 +158,19 @@ def gemm_backend(cfg: ModelConfig):
     return OPS.backend_for(cfg)
 
 
-def _layer(tree: PyTree, i: int) -> PyTree:
-    return tree_map(lambda _p, a: a[i], tree)
+def _unstack(tree: PyTree, n: int) -> list[PyTree]:
+    """The ``n`` layers of a stacked tree, one ``unbind`` a leaf: its
+    backward stacks the layers' gradients once, where indexing each layer
+    adds a zero-filled gradient of the whole stack for every layer."""
+    parts: list = []
+    tree_map(lambda _p, a: parts.append(
+        a.unbind(0) if isinstance(a, torch.Tensor)
+        else [a[g] for g in range(n)]), tree)      # a QuantTensor
+
+    def layer(g):
+        it = iter(parts)
+        return tree_map(lambda _p, _a: next(it)[g], tree)
+    return [layer(g) for g in range(n)]
 
 
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
@@ -160,13 +179,14 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
                  block_table: torch.Tensor | None,
                  pos_advance: torch.Tensor | None,
                  seq_lens: torch.Tensor | None, backend
-                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 ) -> tuple[torch.Tensor, torch.Tensor | None,
+                            torch.Tensor | None]:
     """One block over its cache (per-slot state, dense stripes or pool
     leaves, and the cursor of this layer), or over none (the forward).
     Recurrent state is written in place; returns (x, the attention cursor
-    after the call, or None for a MAMBA2 block or without a cache).  The
-    FFN is the block's ``moe`` where it has one, else its ``mlp`` (the
-    first block's dense MLP among them)."""
+    after the call, or None for a MAMBA2 block or without a cache, the
+    MoE aux loss or None).  The FFN is the block's ``moe`` where it has
+    one, else its ``mlp`` (the first block's dense MLP among them)."""
     eps = cfg.norm_eps
     if kind is BlockKind.MAMBA2:
         # ``seq_lens`` masks the recurrence of pad positions and of rows
@@ -179,7 +199,7 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
         if state is not None:
             for k in _SLOT_STATE_KEYS:
                 state[k].copy_(new[k])
-        return x + out, None
+        return x + out, None, None
     attn_kw = dict(pos_offset=pos_offset, cache=cache,
                    block_table=block_table, pos_advance=pos_advance,
                    backend=backend)
@@ -187,7 +207,7 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
         out, nc = A.gqa_attention(shared["attn"],
                                   rms_norm(x, shared["ln1"], eps), cfg,
                                   kind=BlockKind.ATTN, **attn_kw)
-        return x + out, None if nc is None else nc["pos"]
+        return x + out, None if nc is None else nc["pos"], None
     h = rms_norm(x, p["ln1"], eps)
     if cfg.mla is not None:
         out, nc = A.mla_attention(p["attn"], h, cfg, **attn_kw)
@@ -197,14 +217,14 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: dict,
         out = rms_norm(out, p["post_ln1"], eps)
     x = x + out
     h = rms_norm(x, p["ln2"], eps)
+    aux = None
     if "moe" in p:
-        # the aux loss belongs to the training path
-        out, _aux = M.moe_apply(p["moe"], h, cfg, backend=backend)
+        out, aux = M.moe_apply(p["moe"], h, cfg, backend=backend)
     else:
         out = mlp_apply(p["mlp"], h, cfg.act, backend=backend)
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln2"], eps)
-    return x + out, None if nc is None else nc["pos"]
+    return x + out, None if nc is None else nc["pos"], aux
 
 
 def _block_cache(tree: dict, i: int) -> dict:
@@ -217,57 +237,85 @@ def _run_blocks(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 block_table: torch.Tensor | None = None,
                 pos_advance: torch.Tensor | None = None,
                 seq_lens: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, PyTree | None]:
+                ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor | None]:
     """The first block, the pattern groups in order (each group's kinds
     in pattern order), then the tail blocks; returns (x, the cache tree
-    with new cursors, or None without one).  ``block_table`` None: dense
-    stripes."""
+    with new cursors, or None without one, the summed MoE aux loss, an
+    fp32 scalar, or None without MoE blocks).  ``block_table`` None:
+    dense stripes.  Under ``cfg.remat``, a forward without caches that
+    builds a graph recomputes each group in the backward
+    (``torch.utils.checkpoint``, non-reentrant: launch counters and
+    ``moe.record_drops`` tick again on the recompute)."""
     backend = gemm_backend(cfg)
     kw = dict(pos_offset=pos_offset, block_table=block_table,
               pos_advance=pos_advance, seq_lens=seq_lens, backend=backend)
+    aux = None
     out: dict = {}
     if "first_block" in params:
         fcache = None if caches is None else caches["first"]
-        x, pos = _apply_block(cfg, BlockKind.ATTN, params["first_block"], x,
-                              fcache, None, **kw)
+        x, pos, a = _apply_block(cfg, BlockKind.ATTN, params["first_block"],
+                                 x, fcache, None, **kw)
+        if a is not None:
+            aux = a if aux is None else aux + a
         if fcache is not None:
             out["first"] = {**fcache, "pos": pos}
     n_pat = len(cfg.pattern)
     new_pos: list[list[torch.Tensor]] = [[] for _ in range(n_pat)]
-    for gi in range(cfg.n_groups_scan):
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    n_groups = cfg.n_groups_scan
+    layers = [_unstack(b, n_groups) for b in params["blocks"]]
+    if "shared_attn" in params:
+        shared_sets = _unstack(params["shared_attn"], cfg.n_shared_attn_sets)
+    for gi in range(n_groups):
         shared = None
         if "shared_attn" in params:
-            shared = _layer(params["shared_attn"],
-                            gi % cfg.n_shared_attn_sets)
-        for i, kind in enumerate(cfg.pattern):
-            x, pos = _apply_block(
-                cfg, kind, _layer(params["blocks"][i], gi), x,
-                None if caches is None
-                else _block_cache(caches["groups"][i], gi), shared, **kw)
-            if pos is not None:
-                new_pos[i].append(pos)
+            shared = shared_sets[gi % cfg.n_shared_attn_sets]
+
+        def group(x, aux, gi=gi, shared=shared):
+            for i, kind in enumerate(cfg.pattern):
+                x, pos, a = _apply_block(
+                    cfg, kind, layers[i][gi], x,
+                    None if caches is None
+                    else _block_cache(caches["groups"][i], gi), shared, **kw)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+                if pos is not None:
+                    new_pos[i].append(pos)
+            return x, aux
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                group, x, aux, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, aux = group(x, aux)
     tail = []
     for i, kind in enumerate(cfg.tail):
         tcache = None if caches is None else caches["tail"][i]
-        x, pos = _apply_block(cfg, kind, params["tail_blocks"][i], x,
-                              tcache, None, **kw)
+        x, pos, a = _apply_block(cfg, kind, params["tail_blocks"][i], x,
+                                 tcache, None, **kw)
+        if a is not None:
+            aux = a if aux is None else aux + a
         tail.append(tcache if pos is None else {**tcache, "pos": pos})
     if caches is None:
-        return x, None
+        return x, None, aux
     out["groups"] = tuple(
         {**gcache, "pos": torch.stack(new_pos[i])} if new_pos[i] else gcache
         for i, gcache in enumerate(caches["groups"]))
     if cfg.tail:
         out["tail"] = tuple(tail)
-    return x, out
+    return x, out, aux
 
 
 def _embed_inputs(params: PyTree, cfg: ModelConfig, batch: dict
                   ) -> torch.Tensor:
     """Token embeddings, with llava's projected patch embeddings
     (``batch["patches"]`` (B, P, D)) ahead of them where given; the
-    sqrt(d) scale applies to the tokens only, as in the reference."""
+    sqrt(d) scale applies to the tokens only, as in the reference.  The
+    frames frontend projects ``batch["frames"]`` (B, S, D) instead."""
     dt = _dtype(cfg.compute_dtype)
+    if cfg.frontend == "frames":
+        return dense(batch["frames"].to(dt), params["frame_proj"]["w"],
+                     params["frame_proj"]["b"], backend=gemm_backend(cfg))
     x = embed_apply(params["embed"], batch["tokens"], dt)
     if cfg.scale_embeddings:
         # sqrt(d_model) rounded to the compute dtype first, as the
@@ -290,14 +338,40 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor
                       backend=gemm_backend(cfg))
 
 
+def _forward(params: PyTree, cfg: ModelConfig, batch: dict
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``forward``: (fp32 logits (B, S, V), the summed
+    MoE aux loss, fp32 scalar)."""
+    x = _embed_inputs(params, cfg, batch)
+    x, _, aux = _run_blocks(params, cfg, x, pos_offset=0, caches=None)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux
+
+
 def forward(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Full-sequence forward: fp32 logits (B, S, V) at every position
-    (patch positions included).  The reference's second output, the MoE
-    auxiliary loss, belongs to the training path."""
-    _check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
-    x, _ = _run_blocks(params, cfg, x, pos_offset=0, caches=None)
-    return _logits(params, cfg, x)
+    (patch positions included; every frame of the frames frontend).  The
+    reference's second output, the MoE aux loss, enters ``loss_fn``."""
+    return _forward(params, cfg, batch)[0]
+
+
+def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Token-level cross-entropy (labels == -1 masked) plus the MoE aux
+    loss: (loss, {"ce", "aux", "tokens"}), fp32 scalars.  Under
+    ``patches`` the labels align to the text suffix of the logits."""
+    logits, aux = _forward(params, cfg, batch)
+    labels = batch["labels"].long()
+    if cfg.frontend == "patches":
+        logits = logits[:, -labels.shape[1]:]
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    ce = ((lse - gold) * mask).sum()
+    denom = mask.sum().clamp_min(1.0)
+    return ce / denom + aux, {"ce": ce / denom, "aux": aux,
+                              "tokens": mask.sum()}
 
 
 def _serve(params: PyTree, cfg: ModelConfig, batch: dict,
@@ -308,9 +382,9 @@ def _serve(params: PyTree, cfg: ModelConfig, batch: dict,
            last_index: torch.Tensor | None = None, all_rows: bool = False
            ) -> tuple[torch.Tensor, PyTree]:
     x = _embed_inputs(params, cfg, batch)
-    x, new_caches = _run_blocks(params, cfg, x, pos_offset=pos_offset,
-                                caches=caches, block_table=block_table,
-                                pos_advance=pos_advance, seq_lens=seq_lens)
+    x, new_caches, _aux = _run_blocks(
+        params, cfg, x, pos_offset=pos_offset, caches=caches,
+        block_table=block_table, pos_advance=pos_advance, seq_lens=seq_lens)
     if "pos" in caches:
         # an attention-free tree's cursor: no layer moves it
         adv = 0 if pos_advance is None else pos_advance.to(
@@ -423,7 +497,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     recurrent state per MAMBA2 layer; groups stacked, the tail
     unstacked.  Cursors are scalars (``expand_cache_pos`` gives each
     slot its own)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.compute_dtype)
 
@@ -468,7 +541,6 @@ def init_paged_caches(cfg: ModelConfig, slots: int, num_blocks: int,
     pools, SSM state stays per slot (it is O(1) per slot: nothing to
     page); each SHARED_ATTN position has its own pool.  Callers still
     ``expand_cache_pos(tree, slots)`` so each slot has its own cursor."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.compute_dtype)
 

@@ -142,13 +142,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_prevs = torch.stack(h_prevs, dim=1)                     # (B,nc,H,P,N)
 
     # inter-chunk output: y_t += decay_from_start[t] * C_t . h_prev, added
-    # into y_intra in place (one pass, no copy of the permuted product)
+    # into y_intra in place (one pass, no copy of the permuted product);
+    # under autograd out of place, which leaves K5's output to its
+    # Function and the backward to the graph
     y_inter = torch.einsum("bcsgn,bcgrpn->bcsgrp", Cc, h_prevs.reshape(
         Bb, nc, G, rep, P, N))
-    y_intra.view(Bb, nc, chunk, G, rep, P).addcmul_(
-        y_inter, torch.exp(cums).view(Bb, nc, chunk, G, rep, 1))
+    decay = torch.exp(cums).view(Bb, nc, chunk, G, rep, 1)
+    y6 = y_intra.view(Bb, nc, chunk, G, rep, P)
+    if y_intra.requires_grad or y_inter.requires_grad:
+        y6 = torch.addcmul(y6, y_inter, decay)
+    else:
+        y6.addcmul_(y_inter, decay)
 
-    y = y_intra.reshape(Bb, S, H, P)
+    y = y6.reshape(Bb, S, H, P)
     return y[:, :S_in], h
 
 

@@ -120,9 +120,12 @@ def test_registry_and_supported_families():
         assert TC.get(cfg.name) == cfg               # the dashed alias
         TN.param_defs(cfg)                           # supported
     base = TC.get("qwen2_0_5b")
-    # only the frames frontend (the training path's hubert) is refused
-    with pytest.raises(NotImplementedError, match="frames"):
-        TN.param_defs(dataclasses.replace(base, frontend="frames"))
+    # the frames frontend (hubert, trained by tests/test_torch_train.py)
+    # has no embedding table: frame_proj and an untied head
+    frames = TN.param_defs(dataclasses.replace(base, frontend="frames"))
+    assert "embed" not in frames
+    assert frames["lm_head"].shape == (base.vocab, base.d_model)
+    assert frames["frame_proj"]["w"].shape == (base.d_model, base.d_model)
     # MLA and a dense first layer are served (tests/test_torch_mla.py)
     mla = TN.param_defs(dataclasses.replace(base, mla=MLAConfig(),
                                             first_layer_dense_ff=256))

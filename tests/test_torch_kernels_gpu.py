@@ -1354,3 +1354,93 @@ def test_mla_attention_on_card_matches_cpu(cuda, backend):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     assert TPA.launches.count == 0
+
+
+# -- K5-bwd (the SSD intra-chunk backward) and training on the card ---------
+
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 4, 256, 80, 1, 64, 128), {}),
+    ((4, 4, 256, 112, 1, 64, 64), {}),
+    ((8, 4, 256, 26, 2, 64, 128), {}),
+    ((8, 1, 32, 80, 1, 64, 128), {}),
+    ((2, 1, 100, 8, 2, 24, 40), {}),
+    ((2, 2, 256, 16, 1, 64, 128), {"strided": True}),
+    ((2, 1, 100, 8, 2, 18, 10), {"unaligned": True}),
+    ((2, 1, 256, 16, 1, 64, 128), {"fall": 300.0}),
+], ids=["mamba2-train", "zamba2-train", "G2-ragged-head-block", "Q32",
+        "ragged-Q", "strided-views", "unaligned", "cums-fall-300"])
+def test_ssd_intra_bwd_matches_plain(cuda, shape, kw):
+    """K5-bwd against ``ssd_intra_chunked_bwd_ref``: each output within
+    2e-4 of its max |.|, finite, and two launches bit-equal."""
+    B, nc, Q, H, G, P, N = shape
+    unaligned = kw.pop("unaligned", False)
+    args = _grouped_ssd_inputs(cuda, *shape, seed=sum(shape) + 1, **kw)
+    gen = torch.Generator().manual_seed(sum(shape))
+    dy = torch.randn(B, nc, Q, H, P, generator=gen).to(cuda)
+    if kw.get("strided"):
+        dy = dy.transpose(3, 4).contiguous().transpose(3, 4)
+    if unaligned:
+        def shift(t):
+            buf = torch.empty(t.numel() + 1, device=cuda)
+            return buf[1:].view(t.shape).copy_(t)
+        args[0], dy = shift(args[0]), shift(dy)
+    plan = TSSD.ssd_bwd_plan(B, nc, Q, H, G, P)
+    if shape[:5] == (8, 4, 256, 26, 2):
+        assert (H // G) % plan.head_block != 0
+    before = TSSD.bwd_launches.count
+    got = TSSD.ssd_intra_chunked_bwd(*args, dy)
+    again = TSSD.ssd_intra_chunked_bwd(*args, dy)
+    want = TSSD.ssd_intra_chunked_bwd_ref(*args, dy)
+    torch.cuda.synchronize()
+    assert TSSD.bwd_launches.count == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= 2e-4 * w.abs().max()
+        assert torch.equal(g, a)
+
+
+def test_ssd_intra_bwd_reads_no_device_value(cuda):
+    """K5-bwd's wrapper sizes its launch from shapes alone: no host sync."""
+    args = _grouped_ssd_inputs(cuda, 4, 4, 256, 80, 1, 64, 128, seed=8)
+    dy = torch.randn(4, 4, 256, 80, 64, device=cuda)
+    TSSD.ssd_intra_chunked_bwd(*args, dy)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TSSD.ssd_intra_chunked_bwd(*args, dy)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_mamba2_loss_backward_on_card_matches_cpu(cuda):
+    """Scaled-down mamba2 (fp32) ``loss_fn`` and ``loss.backward()`` on the
+    card (K5 forward, K5-bwd backward, once a layer) against the CPU:
+    the loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+    max |g|."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.adamw import leaves
+    cfg = TC.get("mamba2_2_7b").scaled_down()
+    params = TN.init(cfg, 0, "cpu")
+    batch = make_batch(cfg, DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=2, seed=1), 0)
+
+    def run(dev):
+        p = tree_map(lambda _p, a: a.detach().to(dev).requires_grad_(),
+                     params)
+        ps = leaves(p)
+        loss, _ = TN.loss_fn(p, cfg, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in batch.items()})
+        loss.backward()
+        return loss.item(), [t.grad.cpu() for t in ps]
+    want_loss, want = run("cpu")
+    TSSD.launches.reset()
+    TSSD.bwd_launches.reset()
+    got_loss, got = run(cuda)
+    torch.cuda.synchronize()
+    assert TSSD.launches.count == cfg.n_layers
+    assert TSSD.bwd_launches.count == cfg.n_layers
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max().clamp_min(1e-30)
